@@ -1,10 +1,10 @@
 // Connected-components labeling (8-connectivity) for binary masks.
 //
-// TPU-native replacement for the reference's only CUDA kernel
+// Host replacement for the reference's only CUDA kernel
 // (reference sam2/csrc/connected_components.cu:1-289): mask postprocessing
 // (hole filling / sprinkle removal) runs on small host-side mask grids, so
-// the natural TPU-framework design is a fast native host kernel rather than
-// a device kernel — no HBM round-trip, no XLA custom call.
+// a fast native host kernel serves it without a device round-trip or an
+// XLA custom call.
 //
 // Two-pass union-find with path compression; outputs per-pixel component
 // labels (1-based over foreground, 0 background) and component areas,

@@ -26,9 +26,9 @@ def test_ring_attention_matches_full():
     k = rng.standard_normal((b, t, h, d)).astype(np.float32)
     v = rng.standard_normal((b, t, h, d)).astype(np.float32)
 
-    from vdn.ops.attention import _xla_attention
-    ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), d ** -0.5))
+    from vdn.ops.attention import dot_product_attention
+    ref = np.asarray(dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), d ** -0.5))
 
     ring = shard_map(
         lambda q, k, v: ring_attention(q, k, v, SEQ_AXIS),
@@ -43,8 +43,7 @@ def test_ring_attention_matches_full():
 @pytest.mark.parametrize("pe", ["ape", "rope"])
 def test_context_parallel_video_model_matches(pe):
     mesh = make_mesh(data=2, seq=4)
-    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64),
-               use_flash=False, pe=pe)
+    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64), pe=pe)
     single = VideoDepthAnything(**cfg)
     parallel = VideoDepthAnything(**cfg, seq_axis=SEQ_AXIS)
 
@@ -59,47 +58,28 @@ def test_context_parallel_video_model_matches(pe):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
 
 
-def test_ring_pallas_matches_full():
-    """The fused blockwise Pallas ring step (vdn/ops/pallas/
-    ring_attention.py) must reproduce full attention exactly, forward and
-    backward (backward recomputes via the XLA ring under custom_vjp)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from vdn.ops.attention import _xla_attention
-    from vdn.ops.pallas.ring_attention import ring_attention_pallas
+def test_ring_attention_grad_matches_full():
+    """Gradients through the ppermute ring equal full attention's."""
+    from vdn.ops.attention import dot_product_attention
 
     mesh = make_mesh(data=1, seq=8, model=1)
     rng = np.random.default_rng(11)
     n, t, h, d = 8, 64, 2, 32
-    q = rng.standard_normal((n, t, h, d)).astype(np.float32)
-    k = rng.standard_normal((n, t, h, d)).astype(np.float32)
-    v = rng.standard_normal((n, t, h, d)).astype(np.float32)
-    ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), d ** -0.5))
-
-    def local(q, k, v):
-        with pltpu.force_tpu_interpret_mode():
-            return ring_attention_pallas(q, k, v, SEQ_AXIS)
-
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(P(None, SEQ_AXIS),) * 3,
+    q, k, v = (jnp.asarray(rng.standard_normal((n, t, h, d)),
+                           jnp.float32) for _ in range(3))
+    fn = shard_map(lambda q, k, v: ring_attention(q, k, v, SEQ_AXIS),
+                   mesh=mesh, in_specs=(P(None, SEQ_AXIS),) * 3,
                    out_specs=P(None, SEQ_AXIS), check_vma=False)
-    with mesh:
-        got = np.asarray(jax.jit(fn)(q, k, v))
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
 
-    # gradients flow through the custom_vjp (XLA-ring recompute backward)
     def loss(q, k, v):
         return jnp.sum(jnp.square(fn(q, k, v)))
 
     def loss_ref(q, k, v):
-        return jnp.sum(jnp.square(_xla_attention(q, k, v, d ** -0.5)))
+        return jnp.sum(jnp.square(dot_product_attention(q, k, v)))
 
     with mesh:
-        got_g = jax.grad(loss, argnums=(0, 1, 2))(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want_g = jax.grad(loss_ref, argnums=(0, 1, 2))(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        got_g = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    want_g = jax.grad(loss_ref, argnums=(0, 1, 2))(q, k, v)
     for g, w in zip(got_g, want_g):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w),
                                    rtol=3e-4, atol=3e-4)
@@ -113,8 +93,7 @@ def test_context_parallel_streaming_decode_matches():
     and the new cache entries must match the single-device concat path
     exactly."""
     mesh = make_mesh(data=2, seq=4)
-    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64),
-               use_flash=False)
+    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64))
     single = VideoDepthAnything(**cfg)
     parallel = VideoDepthAnything(**cfg, seq_axis=SEQ_AXIS)
 
@@ -169,8 +148,7 @@ def test_context_parallel_chunk_window_matches():
     test_streaming_chunked_matches_per_frame ties to the per-frame scan
     path (reference video_depth_stream.py:133-158)."""
     mesh = make_mesh(data=2, seq=4)
-    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64),
-               use_flash=False)
+    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64))
     single = VideoDepthAnything(**cfg)
     parallel = VideoDepthAnything(**cfg, seq_axis=SEQ_AXIS)
 
@@ -236,9 +214,9 @@ def test_ulysses_matches_ring_and_full():
     q = rng.standard_normal((n, t, h, d)).astype(np.float32)
     k = rng.standard_normal((n, t, h, d)).astype(np.float32)
     v = rng.standard_normal((n, t, h, d)).astype(np.float32)
-    from vdn.ops.attention import _xla_attention
-    ref = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), d ** -0.5))
+    from vdn.ops.attention import dot_product_attention
+    ref = np.asarray(dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), d ** -0.5))
     uly = shard_map(
         lambda q, k, v: ulysses_attention(q, k, v, SEQ_AXIS),
         mesh=mesh,
@@ -249,8 +227,7 @@ def test_ulysses_matches_ring_and_full():
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
 
     # full video model under alltoall mode matches single-device
-    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64),
-               use_flash=False)
+    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64))
     single = VideoDepthAnything(**cfg)
     parallel = VideoDepthAnything(**cfg, seq_axis=SEQ_AXIS)
     x = rng.standard_normal((1, 8, 56, 56, 3)).astype(np.float32)
@@ -272,7 +249,7 @@ def test_vit_tensor_parallel_matches():
     from vdn.parallel.sharding import shard_params, vit_tp_rules
     from vdn.parallel.mesh import MODEL_AXIS
     mesh = make_mesh(data=1, seq=1, model=8)
-    model = make_vit("vits", use_flash=False)
+    model = make_vit("vits")
     rng = np.random.default_rng(6)
     x = rng.standard_normal((1, 56, 56, 3)).astype(np.float32)
     params = model.init(jax.random.PRNGKey(0), x)
@@ -293,7 +270,7 @@ def test_vitg_swiglu_tensor_parallel_matches():
     from vdn.parallel.sharding import shard_params
     mesh = make_mesh(data=1, seq=1, model=8)
     model = DinoVisionTransformer(embed_dim=256, depth=2, num_heads=8,
-                                  ffn="swiglufused", use_flash=False)
+                                  ffn="swiglufused")
     rng = np.random.default_rng(7)
     x = rng.standard_normal((1, 56, 56, 3)).astype(np.float32)
     params = model.init(jax.random.PRNGKey(0), x)
@@ -313,7 +290,7 @@ def test_tp_coverage_assertion_on_vitg_tree():
     from vdn.nn.vit import make_vit
     from vdn.parallel.sharding import assert_tp_coverage, vit_tp_rules
 
-    model = make_vit("vitg", use_flash=False)
+    model = make_vit("vitg")
     params = jax.eval_shape(
         model.init, jax.random.PRNGKey(0),
         jax.ShapeDtypeStruct((1, 56, 56, 3), np.float32))

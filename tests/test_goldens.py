@@ -76,9 +76,23 @@ def test_golden_temporal_module():
         0, 4, 1, 2, 3)
     np.testing.assert_allclose(got_ref_layout, ref_out.astype(np.float32),
                                rtol=1e-4, atol=1e-5)
-    for g, o in zip(caches, outs[1:]):
-        np.testing.assert_allclose(np.asarray(g), o.astype(np.float32),
-                                   rtol=1e-4, atol=1e-4)
+    # the reference caches each attention block's input; vdn caches the
+    # position-free packed K/V of that input ([K | V | 0] lanes,
+    # head-major rows; vdn/nn/motion.py), so pack the golden inputs
+    # through the same to_k/to_v weights
+    blk = params["params"]["temporal_transformer"]["transformer_blocks_0"]
+    heads, dh = 4, c // 4
+    for i, (g, o) in enumerate(zip(caches, outs[1:])):
+        att = blk[f"attention_blocks_{i}"]
+        o = o.astype(np.float64)
+        bn, t = o.shape[:2]
+        hv = lambda a: a.reshape(bn, t, heads, dh).transpose(2, 0, 1, 3)
+        k = hv(o @ np.asarray(att["to_k"]["kernel"], np.float64))
+        v = hv(o @ np.asarray(att["to_v"]["kernel"], np.float64))
+        pad = np.zeros(k.shape[:-1] + (g.shape[-1] - 2 * dh,))
+        want = np.concatenate([k, v, pad], -1).reshape(heads * bn, t, -1)
+        np.testing.assert_allclose(np.asarray(g), want, rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_golden_memory_attention():

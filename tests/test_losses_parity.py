@@ -116,7 +116,7 @@ def test_normal_loss_and_vector_match():
 
 
 def test_ssim_cs_loss_separable_conv_blur():
-    """The SSIM blur is two VALID depthwise convs (TPU-friendly); check the
+    """The SSIM blur is two VALID depthwise convs ; check the
     whole term against a direct numpy np.convolve implementation of the
     same math (the reference MS_SSIM with weights [1,0,0,0,0],
     loss.py:296-323)."""

@@ -25,7 +25,7 @@ def pair():
                  out_channels=[48, 96, 192, 384]).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = DepthAnythingV2(encoder="vits", features=64,
-                            out_channels=(48, 96, 192, 384), use_flash=False)
+                            out_channels=(48, 96, 192, 384))
     return ref, model, params
 
 

@@ -53,7 +53,7 @@ def test_metric_trainer_step_runs():
     from vdn.train.metric_depth import MetricDepthTrainer
     model = MetricDepthAnythingV2(encoder="vits", features=32,
                                   out_channels=(32, 32, 64, 64),
-                                  max_depth=20.0, use_flash=False)
+                                  max_depth=20.0)
     rng = np.random.default_rng(0)
     batch = {
         "image": rng.standard_normal((2, 56, 56, 3)).astype(np.float32),

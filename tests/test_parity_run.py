@@ -31,23 +31,3 @@ def test_image_self_test(tmp_path):
     assert rc == 0
     report = json.loads(out.read_text())
     assert report["load_missing_keys"] == []
-
-
-def test_video_self_test_int8(tmp_path, monkeypatch):
-    """The int8_static serving mode is covered by the prepared parity
-    command (VDN_FORCE_INT8 opens the serving gates at the self-test's
-    tiny shapes; on CPU the kernels run in Pallas interpret mode)."""
-    monkeypatch.delenv("VDN_FORCE_INT8", raising=False)
-    out = tmp_path / "report.json"
-    rc = parity_run.main(["--self-test", "--family", "video",
-                          "--encoder", "vits", "--int8",
-                          "--out", str(out)])
-    assert rc == 0
-    report = json.loads(out.read_text())
-    assert report["quantize"] == "int8_static"
-    qd = report["quant_drift_vs_float"]
-    # the drift gate serving must not ship past
-    assert qd["delta1"] > 0.98
-    # the quantized path must have actually run (absrel must show
-    # quantization noise, not a silently-float forward)
-    assert qd["absrel"] > 1e-5

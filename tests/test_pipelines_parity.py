@@ -37,8 +37,7 @@ def test_windowed_video_matches():
     ref = RefVDAClip(**CFG).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
     frames = _frames(40, 64, 88)
     with torch.no_grad():
         ref_depths, _ = ref.infer_video_depth(frames, 24, input_size=56,
@@ -56,8 +55,7 @@ def test_windowed_encoder_cache_exact():
     same whether gathered from the previous window or recomputed
     (tolerance covers batch-tiling float noise only)."""
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
     frames = _frames(40, 64, 88, seed=2)
     import jax
     params = jax.jit(model.init)(
@@ -75,8 +73,7 @@ def test_streaming_matches():
     ref = RefVDAStream(**CFG).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
     pipe = VideoDepthStreamPipeline(model, params, input_size=56)
     frames = _frames(14, 64, 64, seed=3)
     for i in range(14):
@@ -95,7 +92,7 @@ def test_infer_image_stateful_matches():
     ref = RefDA2(**CFG).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = DepthAnythingV2(encoder="vits", features=64,
-                            out_channels=(48, 96, 192, 384), use_flash=False)
+                            out_channels=(48, 96, 192, 384))
     pipe = DepthAnythingV2Pipeline(model, params)
     # NOTE: the memory RoPE path is square-grid only — the reference asserts
     # on non-square inputs (sam2 position_encoding.py:207 via
@@ -118,8 +115,7 @@ def test_streaming_chunked_matches_per_frame():
     import jax.numpy as jnp
 
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
     params = model.init(jax.random.PRNGKey(0),
                         jnp.zeros((1, 2, 56, 56, 3), jnp.float32))
     frames = _frames(13, 64, 64, seed=5)

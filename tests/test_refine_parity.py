@@ -15,8 +15,7 @@ from vdn.models.refine import (RefineVideoDepth,  # noqa: E402
                                match_seq_to_first_median)
 
 CFG = dict(encoder="vits", features=64, out_channels=[48, 96, 192, 384])
-VDN_CFG = dict(encoder="vits", features=64, out_channels=(48, 96, 192, 384),
-               use_flash=False)
+VDN_CFG = dict(encoder="vits", features=64, out_channels=(48, 96, 192, 384))
 
 
 def _depth_input(seed=0, b=1, s=3, h=56, w=56):

@@ -30,7 +30,7 @@ def test_schedule_matches_torch_warm_restarts():
 @pytest.fixture(scope="module")
 def tiny_setup():
     model = RefineVideoDepth(version=4, encoder="vits", features=32,
-                             out_channels=(32, 32, 64, 64), use_flash=False)
+                             out_channels=(32, 32, 64, 64))
     rng = np.random.default_rng(0)
     batch = {
         "depth_anything_v2": (rng.random((2, 4, 56, 56)) * 65535

@@ -43,8 +43,7 @@ def test_refine_trainer_mesh_parity():
     from vdn.train.trainer import RefineTrainer
 
     model = RefineVideoDepth(version=4, encoder="vits", features=32,
-                             out_channels=(32, 32, 64, 64),
-                             use_flash=False)
+                             out_channels=(32, 32, 64, 64))
     rng = np.random.default_rng(0)
     batch = {
         "depth_anything_v2": (rng.random((4, 2, 28, 28)) * 65535
@@ -91,7 +90,7 @@ def test_metric_trainer_mesh_parity():
 
     model = MetricDepthAnythingV2(encoder="vits", features=32,
                                   out_channels=(32, 32, 64, 64),
-                                  max_depth=20.0, use_flash=False)
+                                  max_depth=20.0)
     rng = np.random.default_rng(1)
     img = rng.standard_normal((4, 28, 28, 3)).astype(np.float32)
     depth = (rng.random((4, 28, 28)) * 10 + 0.5).astype(np.float32)

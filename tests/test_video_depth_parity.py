@@ -24,8 +24,7 @@ def pair():
     ref = RefVDA(**CFG).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
     return ref, model, params
 
 
@@ -48,8 +47,7 @@ def test_streaming_cached_decode_matches(pair):
     ref = ref_stream.VideoDepthAnything(**CFG).eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
     model = VideoDepthAnything(encoder="vits", features=64,
-                               out_channels=(48, 96, 192, 384),
-                               use_flash=False)
+                               out_channels=(48, 96, 192, 384))
 
     rng = np.random.default_rng(1)
     window = rng.standard_normal((1, 3, 56, 56, 3)).astype(np.float32)
@@ -92,8 +90,7 @@ def test_remat_head_matches_unremat():
     import jax.numpy as jnp
     from vdn.models.video_depth_anything import VideoDepthAnything
 
-    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64),
-               use_flash=False)
+    cfg = dict(encoder="vits", features=32, out_channels=(32, 32, 64, 64))
     x = np.random.default_rng(0).standard_normal(
         (1, 2, 56, 56, 3)).astype(np.float32)
     m0 = VideoDepthAnything(**cfg, remat=False)

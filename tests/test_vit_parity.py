@@ -23,7 +23,7 @@ def vits_pair():
     torch.manual_seed(0)
     ref = DINOv2("vits").eval()
     params = {"params": convert_torch_state(_reference.state_dict_numpy(ref))}
-    model = make_vit("vits", use_flash=False)
+    model = make_vit("vits")
     return ref, model, params
 
 

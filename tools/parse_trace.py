@@ -1,4 +1,5 @@
-"""Summarize a jax.profiler trace: top self-time ops on the TPU device.
+"""Summarize a jax.profiler trace: top self-time ops on the GPU device
+plane(s) (``/device:GPU:N``).
 
 Usage: python tools/parse_trace.py profiles/clip
 Reads the newest .xplane.pb under the trace dir and prints a per-op-category
@@ -33,7 +34,7 @@ def main():
         xspace.ParseFromString(f.read())
 
     for plane in xspace.planes:
-        if "TPU" not in plane.name and "tpu" not in plane.name.lower():
+        if not plane.name.startswith("/device:GPU"):
             continue
         ev_meta = plane.event_metadata
         stats_meta = plane.stat_metadata

@@ -41,7 +41,7 @@ def main():
         xspace.ParseFromString(f.read())
 
     for plane in xspace.planes:
-        if "TPU" not in plane.name and "tpu" not in plane.name.lower():
+        if not plane.name.startswith("/device:GPU"):
             continue
         ev_meta = plane.event_metadata
         stats_meta = plane.stat_metadata

@@ -25,7 +25,7 @@ _PAGE = """<!doctype html>
 body { font-family: sans-serif; max-width: 960px; margin: 2em auto; }
 img { max-width: 45%; border: 1px solid #ccc; margin: 4px; }
 </style></head><body>
-<h1>Depth Anything V2 — vdn TPU demo</h1>
+<h1>Depth Anything V2 — vdn demo</h1>
 <p>Upload an image to compute relative depth.</p>
 <input type="file" id="file" accept="image/*">
 <button onclick="run()">Compute Depth</button>
@@ -149,6 +149,8 @@ def serve(pipeline, port: int = 7860, background: bool = False):
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description="vdn depth web demo")
     ap.add_argument("--encoder", default="vitl",
                     choices=["vits", "vitb", "vitl", "vitg"])

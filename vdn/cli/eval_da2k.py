@@ -13,6 +13,8 @@ import json
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="DA-2K eval (vdn)")
     parser.add_argument("--benchmark-root", required=True)
     parser.add_argument("--encoder", default="vitl",

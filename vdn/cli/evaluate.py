@@ -17,6 +17,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="vdn evaluation")
     parser.add_argument("--dataset-config", type=str, required=True)
     parser.add_argument("--datasets", nargs="+", default=["Sintel"])

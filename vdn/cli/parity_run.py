@@ -88,72 +88,27 @@ def _run_reference(family: str, ref, frames: np.ndarray,
 
 
 def _run_vdn(family: str, encoder: str, cfg: dict, state: dict,
-             frames: np.ndarray, input_size: int,
-             quantize=None, force_int8: bool = False) -> np.ndarray:
-    import contextlib
-    import os
-    import unittest.mock
-
-    import jax
-
+             frames: np.ndarray, input_size: int) -> np.ndarray:
     from vdn.core.convert import convert_torch_state
     params = {"params": convert_torch_state(state)}
 
-    # quantized serving off-TPU: run the Pallas int8 kernels in
-    # interpret mode.  ``force_int8`` (self-test) opens the serving
-    # row-count gates at tiny shapes — scoped so it cannot leak into
-    # the caller's process environment.
-    ctx = contextlib.nullcontext()
-    env = contextlib.nullcontext()
-    if quantize is not None and jax.default_backend() != "tpu":
-        from jax.experimental.pallas import tpu as pltpu
-        ctx = pltpu.force_tpu_interpret_mode()
-    if quantize is not None and force_int8:
-        env = unittest.mock.patch.dict(os.environ,
-                                       {"VDN_FORCE_INT8": "1"})
-
-    import jax.numpy as jnp
-    extra = {"compute_dtype": jnp.bfloat16,
-             "quantize": quantize} if quantize else {}
-    with env, ctx:
-        if family == "video":
-            from vdn.models.video_depth_anything import VideoDepthAnything
-            from vdn.pipelines.infer_video import infer_video_depth
-            model = VideoDepthAnything(
-                encoder=encoder, features=cfg["features"],
-                out_channels=tuple(cfg["out_channels"]), **extra)
-            depths, _ = infer_video_depth(model, params, frames, 30.0,
-                                          input_size=input_size)
-            return depths
-        from vdn.models.depth_anything_v2 import DepthAnythingV2
-        from vdn.pipelines.infer_image import DepthAnythingV2Pipeline
-        model = DepthAnythingV2(
+    if family == "video":
+        from vdn.models.video_depth_anything import VideoDepthAnything
+        from vdn.pipelines.infer_video import infer_video_depth
+        model = VideoDepthAnything(
             encoder=encoder, features=cfg["features"],
-            out_channels=tuple(cfg["out_channels"]), **extra)
-        pipe = DepthAnythingV2Pipeline(model, params)
-        return np.stack([pipe.infer_image(f[..., ::-1], input_size)
-                         for f in frames])
-
-
-
-def _quant_drift(float_pred: np.ndarray, quant_pred: np.ndarray) -> dict:
-    """delta1/AbsRel of the quantized prediction against the float one
-    after lstsq scale/shift alignment (the depthcrafter protocol's
-    alignment, reference eval_depthcrafter/eval.py:90-128)."""
-    a = float_pred.astype(np.float64).reshape(-1)
-    b = quant_pred.astype(np.float64).reshape(-1)
-    A = np.stack([b, np.ones_like(b)], 1)
-    s, t = np.linalg.lstsq(A, a, rcond=None)[0]
-    b = s * b + t
-    eps = 1e-6
-    pos = a > np.percentile(a, 5)
-    ratio = np.maximum(a[pos] / np.maximum(b[pos], eps),
-                       b[pos] / np.maximum(a[pos], eps))
-    return {
-        "delta1": float((ratio < 1.25).mean()),
-        "absrel": float((np.abs(a[pos] - b[pos])
-                         / np.maximum(a[pos], eps)).mean()),
-    }
+            out_channels=tuple(cfg["out_channels"]))
+        depths, _ = infer_video_depth(model, params, frames, 30.0,
+                                      input_size=input_size)
+        return depths
+    from vdn.models.depth_anything_v2 import DepthAnythingV2
+    from vdn.pipelines.infer_image import DepthAnythingV2Pipeline
+    model = DepthAnythingV2(
+        encoder=encoder, features=cfg["features"],
+        out_channels=tuple(cfg["out_channels"]))
+    pipe = DepthAnythingV2Pipeline(model, params)
+    return np.stack([pipe.infer_image(f[..., ::-1], input_size)
+                     for f in frames])
 
 
 def _agreement(ref: np.ndarray, got: np.ndarray) -> dict:
@@ -207,6 +162,8 @@ def _make_self_test_inputs(tmpdir: str, encoder: str, cfg: dict,
 
 
 def main(argv=None) -> int:
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser(
         description="reference-vs-vdn weight parity runner")
     p.add_argument("--family", default="video", choices=FAMILIES)
@@ -223,14 +180,6 @@ def main(argv=None) -> int:
     p.add_argument("--max-depth", type=float, default=70.0)
     p.add_argument("--reference-path", default=None,
                    help="reference checkout (default /root/reference)")
-    p.add_argument("--int8", dest="quantize", action="store_const",
-                   const="int8_static", default=None,
-                   help="run the vdn side in the int8_static serving "
-                        "mode (calibrated head convs; bf16 compute) and "
-                        "gate its drift vs the fp32 reference")
-    p.add_argument("--int8-dynamic", dest="quantize",
-                   action="store_const", const="int8",
-                   help="run the vdn side with all-dynamic int8 scales")
     p.add_argument("--out", help="write the full JSON report here")
     p.add_argument("--self-test", action="store_true",
                    help="random-init checkpoint + synthetic clip; fails "
@@ -264,26 +213,16 @@ def main(argv=None) -> int:
     ref_pred = _run_reference(args.family, ref_model, frames,
                               args.input_size)
     vdn_pred = _run_vdn(args.family, args.encoder, cfg, state, frames,
-                        args.input_size, quantize=args.quantize,
-                        force_int8=args.self_test)
+                        args.input_size)
 
     report = {
         "family": args.family, "encoder": args.encoder,
         "checkpoint": args.checkpoint, "n_frames": int(len(frames)),
         "input_size": args.input_size,
-        "quantize": args.quantize,
         "load_missing_keys": list(missing),
         "load_unexpected_keys": list(unexpected),
         "agreement": _agreement(ref_pred, vdn_pred),
     }
-    if args.quantize:
-        # quantized-vs-float drift gate: align the quantized prediction
-        # onto the UNQUANTIZED vdn prediction (lstsq scale/shift, the
-        # eval protocol's alignment) and report delta1/AbsRel — the gate
-        # serving must not ship past (PARITY.md "int8 drift gate")
-        vdn_fp = _run_vdn(args.family, args.encoder, cfg, state, frames,
-                          args.input_size, quantize=None)
-        report["quant_drift_vs_float"] = _quant_drift(vdn_fp, vdn_pred)
     if args.gt:
         gt = _load_array(args.gt)
         report["metrics"] = _metric_table(ref_pred, vdn_pred, gt, args)
@@ -293,10 +232,6 @@ def main(argv=None) -> int:
     ag = report["agreement"]
     print(f"  impl agreement: max|d|={ag['max_abs_diff']:.3e} "
           f"rmse={ag['rmse']:.3e} rel={ag['rel_to_range']:.3e}")
-    if args.quantize:
-        qd = report["quant_drift_vs_float"]
-        print(f"  {args.quantize} drift vs float vdn: "
-              f"delta1={qd['delta1']:.4f} absrel={qd['absrel']:.4f}")
     if "metrics" in report:
         print(f"  {'metric':<22}{'reference':>12}{'vdn':>12}{'delta':>12}")
         for k, row in report["metrics"].items():
@@ -311,17 +246,10 @@ def main(argv=None) -> int:
         # protocol metrics (observed deltas ~1e-5..1e-4); the pointwise
         # bound is loose because random-init predictions have a tiny
         # dynamic range that the stitching scale/shift amplifies.
-        if args.quantize:
-            # quantized self-test: the binding bound is the int8-vs-float
-            # drift gate (random-init calibration stats are conservative
-            # for pointwise agreement with the fp32 torch reference)
-            qd = report["quant_drift_vs_float"]
-            ok = qd["delta1"] > 0.98 and ag["rel_to_range"] < 2e-1
-        else:
-            ok = ag["rel_to_range"] < 2e-2
-            if "metrics" in report:
-                ok &= all(abs(r["delta"]) < 1e-3
-                          for r in report["metrics"].values())
+        ok = ag["rel_to_range"] < 2e-2
+        if "metrics" in report:
+            ok &= all(abs(r["delta"]) < 1e-3
+                      for r in report["metrics"].values())
         print(f"self-test: {'OK' if ok else 'FAIL'}")
         return 0 if ok else 1
     return 0

@@ -14,12 +14,14 @@ from __future__ import annotations
 import argparse
 import os
 
-import cv2
 
 from vdn.cli.run_metric import _list_images, build_metric_pipeline
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    import cv2
     parser = argparse.ArgumentParser(
         description="Generate depth maps and point clouds from images (vdn)")
     parser.add_argument("--encoder", default="vitl", type=str,

@@ -11,12 +11,10 @@ import argparse
 import glob
 import os
 
-import cv2
 import numpy as np
 
 
-def build_pipeline(encoder: str, checkpoint: str, compute_dtype: str = "fp32",
-                   int8: bool = False):
+def build_pipeline(encoder: str, checkpoint: str, compute_dtype: str = "fp32"):
     import jax.numpy as jnp
     from vdn.core.checkpoint import load_torch_checkpoint
     from vdn.core.convert import convert_torch_state
@@ -24,14 +22,16 @@ def build_pipeline(encoder: str, checkpoint: str, compute_dtype: str = "fp32",
     from vdn.pipelines.infer_image import DepthAnythingV2Pipeline
 
     dtype = jnp.bfloat16 if compute_dtype == "bf16" else jnp.float32
-    model = build_depth_anything_v2(encoder, compute_dtype=dtype,
-                                    quantize="int8" if int8 else None)
+    model = build_depth_anything_v2(encoder, compute_dtype=dtype)
     state = load_torch_checkpoint(checkpoint)
     params = {"params": convert_torch_state(state)}
     return DepthAnythingV2Pipeline(model, params)
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    import cv2
     parser = argparse.ArgumentParser(description="Depth Anything V2 (vdn)")
     parser.add_argument("--img-path", type=str, required=True)
     parser.add_argument("--input-size", type=int, default=518)
@@ -43,15 +43,11 @@ def main(argv=None):
     parser.add_argument("--grayscale", action="store_true")
     parser.add_argument("--compute-dtype", default="bf16",
                         choices=["fp32", "bf16"])
-    parser.add_argument("--int8", action="store_true",
-                        help="W8A8-dynamic int8 encoder matmuls (serving "
-                             "mode; see vdn/ops/pallas/int8.py)")
     args = parser.parse_args(argv)
 
     from vdn.utils.video_io import colorize_depth
 
-    pipe = build_pipeline(args.encoder, args.checkpoint, args.compute_dtype,
-                          int8=args.int8)
+    pipe = build_pipeline(args.encoder, args.checkpoint, args.compute_dtype)
 
     if os.path.isfile(args.img_path):
         if args.img_path.endswith("txt"):

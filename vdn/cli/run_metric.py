@@ -13,7 +13,6 @@ import argparse
 import glob
 import os
 
-import cv2
 import numpy as np
 
 
@@ -66,6 +65,9 @@ def _list_images(img_path: str):
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    import cv2
     parser = argparse.ArgumentParser(
         description="Depth Anything V2 Metric Depth Estimation (vdn)")
     parser.add_argument("--img-path", type=str, required=True)

@@ -15,6 +15,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="Video Depth (vdn)")
     parser.add_argument("--video-path", type=str, required=True)
     parser.add_argument("--input-size", type=int, default=518)
@@ -33,15 +35,6 @@ def main(argv=None):
     parser.add_argument("--grayscale", action="store_true")
     parser.add_argument("--compute-dtype", default="bf16",
                         choices=["fp32", "bf16"])
-    parser.add_argument("--int8", action="store_true",
-                        help="int8 serving mode: W8A8-dynamic encoder "
-                             "matmuls + calibrated-static head convs (the "
-                             "first window/frame is the PTQ calibration "
-                             "pass; ~2x MXU rate on v5e, quantization "
-                             "noise bounded in tests/test_int8.py)")
-    parser.add_argument("--int8-dynamic", action="store_true",
-                        help="int8 with per-frame dynamic conv scales "
-                             "(zero-calibration variant of --int8)")
     args = parser.parse_args(argv)
 
     import jax.numpy as jnp
@@ -53,10 +46,7 @@ def main(argv=None):
     from vdn.utils.video_io import read_video_frames, save_video
 
     dtype = jnp.bfloat16 if args.compute_dtype == "bf16" else jnp.float32
-    model = build_video_depth_anything(
-        args.encoder, compute_dtype=dtype,
-        quantize=("int8" if args.int8_dynamic
-                  else "int8_static" if args.int8 else None))
+    model = build_video_depth_anything(args.encoder, compute_dtype=dtype)
     params = {"params": convert_torch_state(
         load_torch_checkpoint(args.checkpoint))}
 

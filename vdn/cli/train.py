@@ -15,6 +15,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="vdn refinement training")
     parser.add_argument("--config", type=str, default=None,
                         help="master experiment config (the reference "

@@ -20,6 +20,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="vdn metric-depth training")
     parser.add_argument("--dataset", default="hypersim",
                         choices=["hypersim", "vkitti2"])

@@ -19,6 +19,8 @@ import numpy as np
 
 
 def main(argv=None):
+    from vdn.core.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(description="vdn v1 depth+normal "
                                      "training")
     parser.add_argument("--config", type=str, default=None,

@@ -149,7 +149,7 @@ class TrainCheckpointer:
     (params + optimizer + step + epoch).
 
     Saves return immediately (the serialization runs in the background so
-    the TPU keeps training — the orbax equivalent of the async-checkpoint
+    the accelerator keeps training — the orbax equivalent of the async-checkpoint
     requirement in SURVEY §5); ``wait()`` or the final ``close()`` blocks
     until durable.  ``restore_latest`` + BatchLoader.set_epoch give
     deterministic resume.

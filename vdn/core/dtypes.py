@@ -1,12 +1,21 @@
-"""Mixed-precision policy for TPU.
+"""Mixed-precision policy.
 
 The reference uses CUDA autocast fp16 with explicit fp32 "islands" (the final
 output convs of the temporal DPT head run out of autocast, and attention
 softmax is optionally upcast — see reference dpt_temporal.py:108-123 and
-motion_module/attention.py:198-204).  On TPU the equivalent policy is
-bf16 compute / fp32 parameters, with softmax and the final output convs pinned
-to fp32.  A `Policy` is threaded through every module; tests run fp32/fp32 so
-parity with the fp32 torch reference is exact.
+motion_module/attention.py:198-204).  Here the policy is bf16 compute / fp32
+parameters, with softmax, LayerNorm statistics and the final output convs
+pinned to fp32.  A `Policy` is threaded through every module; tests run
+fp32/fp32 so parity with the fp32 torch reference is exact.
+
+Precision of the fp32 islands on the GPU: softmax and LayerNorm statistics
+are elementwise/reduction work in fp32 (no tensor cores involved).  fp32
+dots and convs run at JAX's default precision, which is TF32 on the H100
+(about 3 decimal digits): the output island's 3x3 conv takes bf16 operands
+in serving, so TF32 never applies there, and its fp32 1x1 collapse is
+pinned to HIGHEST (vdn/ops/packed_conv.py).  Runs with fp32 compute (the
+fp32 references of chip_smoke.py, the CPU tests) set
+``jax.default_matmul_precision("highest")``.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ lists), and frames pass through the same pipeline:
   final resize to output_size
 
 Pure numpy/cv2 on the host (no torch): RGB floats in [0,1] HWC, depth
-[H, W] fp32, masks [H, W] bool.  Batches are NHWC numpy for the TPU
+[H, W] fp32, masks [H, W] bool.  Batches are NHWC numpy for the
 training loop.
 """
 

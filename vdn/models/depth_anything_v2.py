@@ -16,10 +16,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.dpt import DPTHead
 from vdn.nn.memory import MemoryBlock
 from vdn.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
@@ -35,26 +35,18 @@ class DepthAnythingV2(nn.Module):
     num_mem_attention_layers: int = 4
     param_dtype: Dtype = jnp.float32
     compute_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
     remat: bool = False
-    # "int8": serving-only W8A8-dynamic encoder matmuls (no VJP —
-    # inference pipelines only; see vdn/ops/pallas/int8.py)
-    quantize: Optional[str] = None
 
     def setup(self):
-        # encoder kernels quantize dynamically in VMEM; "int8_static"
-        # only changes the head conv scales (see vdn/ops/int8_conv.py)
-        enc_q = "int8" if self.quantize == "int8_static" else self.quantize
         self.pretrained = make_vit(self.encoder, self.param_dtype,
-                                   self.use_flash, self.remat,
-                                   quantize=enc_q)
+                                   self.remat)
         self.memory_block = MemoryBlock(
             self.pretrained.embed_dim, self.max_memory_length,
             self.num_mem_attention_layers, self.param_dtype)
         self.depth_head = DPTHead(
             in_channels=self.pretrained.embed_dim, features=self.features,
             out_channels=self.out_channels, param_dtype=self.param_dtype,
-            remat=self.remat, quantize=self.quantize)
+            remat=self.remat)
 
     def __call__(self, x: jnp.ndarray, state: Optional[Dict] = None
                  ) -> Tuple[jnp.ndarray, jnp.ndarray]:

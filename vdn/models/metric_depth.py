@@ -12,9 +12,9 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.dpt import DPTHead
 from vdn.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
 
@@ -28,12 +28,11 @@ class MetricDepthAnythingV2(nn.Module):
     max_depth: float = 20.0
     param_dtype: Dtype = jnp.float32
     compute_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
     remat: bool = False
 
     def setup(self):
         self.pretrained = make_vit(self.encoder, self.param_dtype,
-                                   self.use_flash, self.remat)
+                                   self.remat)
         self.depth_head = DPTHead(
             in_channels=self.pretrained.embed_dim, features=self.features,
             out_channels=self.out_channels, param_dtype=self.param_dtype,

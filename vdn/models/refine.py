@@ -20,10 +20,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.dpt_temporal import DPTHeadTemporal
 from vdn.nn.layers import Conv2d
 from vdn.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
@@ -36,7 +36,7 @@ Dtype = Any
 def quantile_median(x: jnp.ndarray) -> jnp.ndarray:
     """torch.quantile(x, 0.5) over the last axis: linear-interpolated
     median (unlike torch.median's lower-median).  Radix select instead
-    of a TPU bitonic sort (vdn/ops/select.py)."""
+    of a sort (vdn/ops/select.py)."""
     from vdn.ops.select import differentiable_value, kth_smallest
 
     n = x.shape[-1]
@@ -58,10 +58,10 @@ class ZeroConv(nn.Module):
 
     @nn.compact
     def __call__(self, x):
-        kernel = self.param("kernel", nn.initializers.zeros,
+        kernel = self.param("kernel", jax.nn.initializers.zeros,
                             (1, 1, x.shape[-1], self.features),
                             self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros,
+        bias = self.param("bias", jax.nn.initializers.zeros,
                           (self.features,), self.param_dtype)
         return (jax.lax.conv_general_dilated(
             x, kernel.astype(x.dtype), (1, 1), "VALID",
@@ -96,13 +96,13 @@ class BatchNorm2d(nn.Module):
 
     @nn.compact
     def __call__(self, x):
-        scale = self.param("scale", nn.initializers.ones,
+        scale = self.param("scale", jax.nn.initializers.ones,
                            (self.features,), self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros,
+        bias = self.param("bias", jax.nn.initializers.zeros,
                           (self.features,), self.param_dtype)
-        mean = self.param("running_mean", nn.initializers.zeros,
+        mean = self.param("running_mean", jax.nn.initializers.zeros,
                           (self.features,), self.param_dtype)
-        var = self.param("running_var", nn.initializers.ones,
+        var = self.param("running_var", jax.nn.initializers.ones,
                          (self.features,), self.param_dtype)
         inv = jax.lax.rsqrt(var.astype(jnp.float32) + self.epsilon)
         y = (x.astype(jnp.float32) - mean) * inv * scale + bias
@@ -123,14 +123,12 @@ class RefineVideoDepth(nn.Module):
     internal_size: Optional[int] = None  # v5: 224
     param_dtype: Dtype = jnp.float32
     compute_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
     remat: bool = False
 
     def setup(self):
         assert self.version in (2, 3, 4, 5)
         pd = self.param_dtype
-        self.pretrained = make_vit(self.encoder, pd, self.use_flash,
-                                   self.remat)
+        self.pretrained = make_vit(self.encoder, pd, self.remat)
         head_name = "temporal_head" if self.version >= 4 else "head"
         head = DPTHeadTemporal(
             in_channels=self.pretrained.embed_dim, features=self.features,

@@ -19,11 +19,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vdn.nn import module as nn
 from vdn.nn.hiera import Hiera, make_hiera
 from vdn.nn.layers import Linear
 from vdn.nn.sam2 import FpnNeck, MaskDecoder, PromptEncoder
@@ -92,7 +92,7 @@ class Sam2ImageModel(nn.Module):
             iou_prediction_use_sigmoid=self.iou_prediction_use_sigmoid,
             dynamic_multimask_via_stability=True, param_dtype=pd)
         self.no_mem_embed = self.param("no_mem_embed",
-                                       nn.initializers.normal(0.02),
+                                       jax.nn.initializers.normal(0.02),
                                        (1, 1, d), pd)
         if self.use_mlp_for_obj_ptr_proj:
             from vdn.nn.sam2 import SamGenericMLP
@@ -101,7 +101,7 @@ class Sam2ImageModel(nn.Module):
             self.obj_ptr_proj = Linear(d, param_dtype=pd)
         if self.pred_obj_scores:
             self.no_obj_ptr = self.param("no_obj_ptr",
-                                         nn.initializers.normal(0.02),
+                                         jax.nn.initializers.normal(0.02),
                                          (1, d), pd)
 
     def __call__(self, x: jnp.ndarray):

@@ -21,12 +21,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from vdn.models.sam2_image import Sam2ImageModel
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, LayerNorm, Linear
 from vdn.nn.memory import Fuser, MemoryAttention
 from vdn.ops.sine_pe import sine_position_embedding_2d
@@ -117,13 +117,13 @@ class Sam2VideoModel(Sam2ImageModel):
         # pos_enc_at_cross_attn_keys=True flows via memory_pos below
         self.memory_encoder = Sam2MemoryEncoder(d, self.mem_dim, pd)
         self.maskmem_tpos_enc = self.param(
-            "maskmem_tpos_enc", nn.initializers.normal(0.02),
+            "maskmem_tpos_enc", jax.nn.initializers.normal(0.02),
             (self.num_maskmem, 1, 1, self.mem_dim), pd)
         self.no_mem_pos_enc = self.param(
-            "no_mem_pos_enc", nn.initializers.normal(0.02), (1, 1, d), pd)
+            "no_mem_pos_enc", jax.nn.initializers.normal(0.02), (1, 1, d), pd)
         self.obj_ptr_tpos_proj = Linear(self.mem_dim, param_dtype=pd)
         self.no_obj_embed_spatial = self.param(
-            "no_obj_embed_spatial", nn.initializers.normal(0.02),
+            "no_obj_embed_spatial", jax.nn.initializers.normal(0.02),
             (1, self.mem_dim), pd)
         # 4x4/4 conv shrinking a full-res input mask to the SAM prompt
         # resolution (reference sam2_base.py:110 self.mask_downsample)

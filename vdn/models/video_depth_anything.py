@@ -15,10 +15,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.dpt_temporal import DPTHeadTemporal
 from vdn.nn.vit import INTERMEDIATE_LAYER_IDX, make_vit
 from vdn.ops.resize import resize2d
@@ -34,29 +34,20 @@ class VideoDepthAnything(nn.Module):
     pe: str = "ape"
     param_dtype: Dtype = jnp.float32
     compute_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
     remat: bool = False
     # mesh axis name for context-parallel temporal attention; the model
     # must then run under shard_map with the clip's T axis sharded on it
     # (vdn.parallel.context.make_context_parallel_forward)
     seq_axis: Optional[str] = None
-    # "int8": serving-only W8A8-dynamic encoder matmuls (no VJP —
-    # inference pipelines only; see vdn/ops/pallas/int8.py)
-    quantize: Optional[str] = None
 
     def setup(self):
-        # the encoder's Pallas matmul kernels quantize in VMEM (zero HBM
-        # cost), so they stay dynamic even under the calibrated head mode
-        enc_q = "int8" if self.quantize == "int8_static" else self.quantize
         self.pretrained = make_vit(self.encoder, self.param_dtype,
-                                   self.use_flash, self.remat,
-                                   quantize=enc_q)
+                                   self.remat)
         self.head = DPTHeadTemporal(
             in_channels=self.pretrained.embed_dim, features=self.features,
             out_channels=self.out_channels, num_frames=self.num_frames,
             pe=self.pe, param_dtype=self.param_dtype,
-            seq_axis=self.seq_axis, remat=self.remat,
-            quantize=self.quantize)
+            seq_axis=self.seq_axis, remat=self.remat)
 
     def forward_features(self, x: jnp.ndarray):
         """x: [B, T, H, W, 3] -> 4 x (tokens [(B*T), N, C], cls)."""

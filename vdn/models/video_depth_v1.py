@@ -23,10 +23,10 @@ from __future__ import annotations
 
 from typing import Any, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.hiera import make_hiera
 from vdn.nn.video_heads import VideoDepthHeadSangyu
 from vdn.ops.normals import normal_vector

@@ -1,4 +1,4 @@
-"""DPT decoder head, TPU-native (NHWC).
+"""DPT decoder head (NHWC).
 
 Re-design of the reference DPT stack (reference depth_anything_v2/dpt.py:37-151
 and util/blocks.py:4-148): 4 intermediate ViT features are projected,
@@ -16,12 +16,12 @@ policy to every head.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, ConvTranspose2d
 from vdn.ops.resize import resize2d
 
@@ -31,35 +31,30 @@ Dtype = Any
 class ResidualConvUnit(nn.Module):
     features: int
     param_dtype: Dtype = jnp.float32
-    quantize: Any = None
 
     @nn.compact
     def __call__(self, x):
         y = jax.nn.relu(x)
         y = Conv2d(self.features, (3, 3), padding=1,
-                   param_dtype=self.param_dtype, quantize=self.quantize,
-                   name="conv1")(y)
+                   param_dtype=self.param_dtype, name="conv1")(y)
         y = jax.nn.relu(y)
         y = Conv2d(self.features, (3, 3), padding=1,
-                   param_dtype=self.param_dtype, quantize=self.quantize,
-                   name="conv2")(y)
+                   param_dtype=self.param_dtype, name="conv2")(y)
         return y + x
 
 
 class FeatureFusionBlock(nn.Module):
     features: int
     param_dtype: Dtype = jnp.float32
-    quantize: Any = None
 
     @nn.compact
     def __call__(self, x, skip=None, size: Optional[Tuple[int, int]] = None):
         out = x
         if skip is not None:
             out = out + ResidualConvUnit(self.features, self.param_dtype,
-                                         self.quantize,
                                          name="resConfUnit1")(skip)
         out = ResidualConvUnit(self.features, self.param_dtype,
-                               self.quantize, name="resConfUnit2")(out)
+                               name="resConfUnit2")(out)
         if size is None:
             size = (out.shape[-3] * 2, out.shape[-2] * 2)
         # out_conv (1x1) commutes exactly with bilinear interpolation (the
@@ -68,8 +63,7 @@ class FeatureFusionBlock(nn.Module):
         # applying it BEFORE the upsample quarters its FLOPs vs the
         # reference order (util/blocks.py:134-148)
         out = Conv2d(self.features, (1, 1), padding=0,
-                     param_dtype=self.param_dtype, quantize=self.quantize,
-                     name="out_conv")(out)
+                     param_dtype=self.param_dtype, name="out_conv")(out)
         return resize2d(out, size, "bilinear", align_corners=True)
 
 
@@ -84,18 +78,17 @@ class Scratch(nn.Module):
     param_dtype: Dtype = jnp.float32
     sigmoid_output: bool = False
     remat: bool = False
-    quantize: Any = None
 
     def setup(self):
-        f, pd, qz = self.features, self.param_dtype, self.quantize
+        f, pd = self.features, self.param_dtype
         self.layer1_rn = Conv2d(f, (3, 3), padding=1, use_bias=False,
-                                param_dtype=pd, quantize=qz)
+                                param_dtype=pd)
         self.layer2_rn = Conv2d(f, (3, 3), padding=1, use_bias=False,
-                                param_dtype=pd, quantize=qz)
+                                param_dtype=pd)
         self.layer3_rn = Conv2d(f, (3, 3), padding=1, use_bias=False,
-                                param_dtype=pd, quantize=qz)
+                                param_dtype=pd)
         self.layer4_rn = Conv2d(f, (3, 3), padding=1, use_bias=False,
-                                param_dtype=pd, quantize=qz)
+                                param_dtype=pd)
         # remat: rematerialize the high-resolution refinenet tail during
         # backward — its 296^2-grid activations dominate training memory
         # (the round-1 B=2 OOM); the reference instead micro-batches the
@@ -103,19 +96,20 @@ class Scratch(nn.Module):
         # (size is arg 3 counting self; it is a static shape tuple)
         ffb = nn.remat(FeatureFusionBlock, static_argnums=(3,)) \
             if self.remat else FeatureFusionBlock
-        self.refinenet1 = ffb(f, pd, qz)
-        self.refinenet2 = ffb(f, pd, qz)
-        self.refinenet3 = ffb(f, pd, qz)
-        self.refinenet4 = ffb(f, pd, qz)
-        self.output_conv1 = Conv2d(f // 2, (3, 3), padding=1, param_dtype=pd,
-                                   quantize=qz)
+        self.refinenet1 = ffb(f, pd)
+        self.refinenet2 = ffb(f, pd)
+        self.refinenet3 = ffb(f, pd)
+        self.refinenet4 = ffb(f, pd)
+        self.output_conv1 = Conv2d(f // 2, (3, 3), padding=1, param_dtype=pd)
         # fp32 *accumulation* island: under bf16 compute the operands
         # (input feature AND this conv's weights) are rounded to bf16 and
         # only the accumulator/output is fp32 — a deliberate deviation
         # from the reference's fully-fp32 island (dpt_temporal.py:108-110)
-        # for 4x MXU rate and no 518^2x128 fp32 convert; the bf16-vs-fp32
-        # drift of this path is bounded by
-        # tests/test_dpt.py::test_output_island_bf16_drift
+        # for the bf16 tensor-core rate and no 518^2x128 fp32 convert; the
+        # bf16-vs-fp32 drift of this path is bounded by
+        # tests/test_dpt.py::test_output_island_bf16_drift.  Under fp32
+        # compute the island's dots run at the default precision (TF32 on
+        # the GPU; see vdn/core/dtypes.py)
         self.output_conv2_0 = Conv2d(32, (3, 3), padding=1, param_dtype=pd,
                                      accum_dtype=jnp.float32)
         self.output_conv2_2 = Conv2d(1, (1, 1), padding=0, param_dtype=pd)
@@ -133,40 +127,26 @@ class Scratch(nn.Module):
         p1 = self.refinenet1(p2, r1, None)
         return p1
 
-    def output_head(self, path_1, out_hw: Tuple[int, int]):
+    def output_head(self, path_1, out_hw: Tuple[int, int],
+                    final_act: Optional[Callable] = None):
         """conv1 -> align_corners-bilinear to (14*ph, 14*pw) -> fp32 convs.
 
-        Returns (depth [B,H,W,1] fp32, upscaled feature — None on the
-        fully-fused TPU path; no caller consumes it)."""
+        ``final_act`` replaces the head's activation (the identity gives
+        the pre-activation output).
+        Returns (depth [B,H,W,1] fp32, upscaled feature)."""
         out = self.output_conv1(path_1)
         # fp32-accumulation island (cf. reference dpt_temporal.py:108-110):
         # compute-dtype operands, fp32 accumulator + fp32 activations from
         # here to the output (see the output_conv2_0 note in setup)
-        act = jax.nn.sigmoid if self.sigmoid_output else jax.nn.relu
+        act = final_act or (jax.nn.sigmoid if self.sigmoid_output
+                            else jax.nn.relu)
         o_ch = 32
         if 128 % o_ch == 0 and 128 // o_ch > 1:
+            # lane-packed island (vdn/ops/packed_conv.py)
             w1, b1 = self.output_conv2_0(out, params_only=True)
             w2, b2 = self.output_conv2_2(
                 jnp.zeros(out.shape[:-1] + (o_ch,), out.dtype),
                 params_only=True)
-            from vdn.ops.pallas.resize_island import (
-                fused_resize_island, fused_resize_island_enabled)
-            if (fused_resize_island_enabled(out.shape[-1], o_ch, out,
-                                            out_hw)
-                    and out.shape[-3] < out_hw[0]
-                    and out.shape[-2] < out_hw[1]):
-                # TPU: W-resize + packed island conv in one kernel — the
-                # [*, out_hw, C] resized feature never touches HBM (its
-                # round trip was ~2.2 GB per vitl 32-frame window); see
-                # vdn/ops/pallas/resize_island.py
-                y = fused_resize_island(
-                    out, w1, b1, w2[0, 0], b2, tuple(out_hw),
-                    self.sigmoid_output,
-                    1.0)  # metric max_depth is applied at the model level
-                return y, None
-            # lane-packed island: N=32 output channels use 25% of the MXU
-            # and force a full-res fp32 intermediate; see
-            # vdn/ops/packed_conv.py
             from vdn.ops.packed_conv import packed_island_head
             up = resize2d(out, out_hw, "bilinear", align_corners=True)
             return packed_island_head(up, w1, b1, w2[0, 0], b2, act), up
@@ -189,19 +169,14 @@ class DPTHead(nn.Module):
     param_dtype: Dtype = jnp.float32
     sigmoid_output: bool = False
     remat: bool = False
-    quantize: Any = None
 
     def setup(self):
-        pd, qz = self.param_dtype, self.quantize
+        pd = self.param_dtype
         oc = self.out_channels
-        self.projects_0 = Conv2d(oc[0], (1, 1), padding=0, param_dtype=pd,
-                                 quantize=qz)
-        self.projects_1 = Conv2d(oc[1], (1, 1), padding=0, param_dtype=pd,
-                                 quantize=qz)
-        self.projects_2 = Conv2d(oc[2], (1, 1), padding=0, param_dtype=pd,
-                                 quantize=qz)
-        self.projects_3 = Conv2d(oc[3], (1, 1), padding=0, param_dtype=pd,
-                                 quantize=qz)
+        self.projects_0 = Conv2d(oc[0], (1, 1), padding=0, param_dtype=pd)
+        self.projects_1 = Conv2d(oc[1], (1, 1), padding=0, param_dtype=pd)
+        self.projects_2 = Conv2d(oc[2], (1, 1), padding=0, param_dtype=pd)
+        self.projects_3 = Conv2d(oc[3], (1, 1), padding=0, param_dtype=pd)
         self.resize_layers_0 = ConvTranspose2d(oc[0], (4, 4), (4, 4),
                                                param_dtype=pd)
         self.resize_layers_1 = ConvTranspose2d(oc[1], (2, 2), (2, 2),
@@ -210,7 +185,7 @@ class DPTHead(nn.Module):
         self.resize_layers_3 = Conv2d(oc[3], (3, 3), stride=(2, 2),
                                       padding=1, param_dtype=pd)
         self.scratch = Scratch(self.features, oc, pd,
-                               self.sigmoid_output, self.remat, qz)
+                               self.sigmoid_output, self.remat)
 
     def project_features(self, out_features, patch_h: int, patch_w: int):
         """tokens [B, ph*pw, C] x4 -> pyramid of NHWC maps."""

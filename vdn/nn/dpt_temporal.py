@@ -8,17 +8,17 @@ refinenet3, threading a KV-cache pytree through them for streaming decode.
 The reference's 4-frame micro-batching of the refinenet tail
 (dpt_temporal.py:98-125) exists to bound CUDA activation memory; under XLA
 we instead rely on fusion + optional remat, keeping the whole window batched
-on the MXU.  Its fp32 output island (output_conv2) is preserved in
+on the device.  Its fp32 output island (output_conv2) is preserved in
 Scratch.output_head.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.dpt import DPTHead
 from vdn.nn.motion import TemporalModule
 
@@ -101,9 +101,11 @@ class DPTHeadTemporal(DPTHead):
         p3, h3 = self.motion_modules_3(p3, t, sub(3), cache_len)
         return p3, tuple(h0 + h1 + h2 + h3)
 
-    def decode_post(self, p3, r1, r2, out_hw):
-        """Frame-independent full-resolution tail."""
+    def decode_post(self, p3, r1, r2, out_hw,
+                    final_act: Optional[Callable] = None):
+        """Frame-independent full-resolution tail (``final_act``: see
+        Scratch.output_head)."""
         p2 = self.scratch.refinenet2(p3, r2, tuple(r1.shape[-3:-1]))
         p1 = self.scratch.refinenet1(p2, r1, None)
-        depth, _ = self.scratch.output_head(p1, out_hw)
+        depth, _ = self.scratch.output_head(p1, out_hw, final_act)
         return depth

@@ -10,9 +10,9 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.hiera import make_hiera
 from vdn.nn.vit import make_vit
 

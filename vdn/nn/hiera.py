@@ -1,4 +1,4 @@
-"""Hiera hierarchical ViT backbone (SAM2 variant), TPU-native.
+"""Hiera hierarchical ViT backbone (SAM2 variant).
 
 Re-design of reference sam2/modeling/backbones/hieradet.py:25-317: windowed
 multi-scale attention with q-pooling at stage changes, global attention at
@@ -16,11 +16,11 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, LayerNorm, Linear
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.resize import resize2d
@@ -207,11 +207,11 @@ class Hiera(nn.Module):
         # sam2 PatchEmbed: conv 7x7 stride 4 pad 3 (backbones/utils.py)
         self.patch_embed = HieraPatchEmbed(self.embed_dim, pd)
         self.pos_embed = self.param(
-            "pos_embed", nn.initializers.zeros,
+            "pos_embed", jax.nn.initializers.zeros,
             (1, *self.window_pos_embed_bkg_spatial_size, self.embed_dim),
             pd)
         self.pos_embed_window = self.param(
-            "pos_embed_window", nn.initializers.zeros,
+            "pos_embed_window", jax.nn.initializers.zeros,
             (1, self.window_spec[0], self.window_spec[0], self.embed_dim),
             pd)
 

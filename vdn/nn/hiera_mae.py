@@ -1,4 +1,4 @@
-"""Plain (MAE-pretrained) Hiera backbone, TPU-native.
+"""Plain (MAE-pretrained) Hiera backbone.
 
 The v1 research model's image/depth encoders are the torch-hub MAE Hiera
 (reference models/hiera_image_encoder.py:35 — ``torch.hub.load(
@@ -17,7 +17,7 @@ convert mechanically.  Numerics are verified against the transformers
 offline — in tests/test_hiera_mae_parity.py (weights converted HF->vdn,
 stage intermediates + pooled output compared).
 
-TPU notes: the unroll/reroll token re-orderings are pure reshapes +
+Notes: the unroll/reroll token re-orderings are pure reshapes +
 transposes (XLA lowers them to layout changes / fused copies); attention
 runs as head-batched einsums with an fp32-softmax island; all shapes are
 static so every variant jits once.
@@ -28,10 +28,10 @@ from __future__ import annotations
 import math
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from vdn.nn import module as nn
 from vdn.nn.layers import LayerNorm, Linear, Mlp, Conv2d
 from vdn.ops.resize import interpolate_like_torch
 
@@ -198,7 +198,7 @@ class HieraMae(nn.Module):
         grid = self.img_size // 4
         self.pos_grid = (grid, grid)
         self.pos_embed = self.param(
-            "pos_embed", nn.initializers.normal(0.02),
+            "pos_embed", jax.nn.initializers.normal(0.02),
             (1, grid * grid, self.embed_dim), pd)
 
         depths = list(self.stages)

@@ -1,7 +1,7 @@
-"""Shared flax building blocks (NHWC convs, torch-compatible semantics).
+"""Shared building blocks (NHWC convs, torch-compatible semantics).
 
 These are the primitives the DINOv2 encoder and DPT heads are assembled
-from.  Layouts are TPU-native (NHWC, HWIO kernels, tokens [B, N, C]);
+from.  Layouts are NHWC, HWIO kernels and tokens [B, N, C];
 numerics match the torch reference so converted checkpoints reproduce
 reference outputs (see tests/test_vit_parity.py).
 """
@@ -10,10 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Tuple, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from vdn.nn import module as nn
 
 
 Dtype = Any
@@ -62,13 +63,8 @@ class Conv2d(nn.Module):
 
     ``accum_dtype`` sets the accumulator/output dtype independently of the
     input dtype (e.g. bf16 inputs with fp32 accumulation + fp32 output for
-    the DPT output island — the TPU equivalent of the reference's
-    out-of-autocast fp32 conv, reference dpt_temporal.py:108-110).
-
-    ``quantize="int8"`` (serving only): W8A8-dynamic int8 conv on the
-    int8 MXU path when the shape gate passes (vdn/ops/int8_conv.py);
-    falls back to the float conv otherwise.  Mutually exclusive with
-    ``accum_dtype`` (the fp32 island is never quantized)."""
+    the DPT output island — the counterpart of the reference's
+    out-of-autocast fp32 conv, reference dpt_temporal.py:108-110)."""
     features: int
     kernel_size: Tuple[int, int]
     stride: Tuple[int, int] = (1, 1)
@@ -77,7 +73,6 @@ class Conv2d(nn.Module):
     feature_group_count: int = 1
     param_dtype: Dtype = jnp.float32
     accum_dtype: Any = None
-    quantize: Any = None
 
     @nn.compact
     def __call__(self, x, *, params_only: bool = False):
@@ -85,66 +80,23 @@ class Conv2d(nn.Module):
         in_ch = x.shape[-1]
         kernel = self.param(
             "kernel",
-            nn.initializers.variance_scaling(1 / 3, "fan_in", "uniform"),
+            jax.nn.initializers.variance_scaling(1 / 3, "fan_in", "uniform"),
             (kh, kw, in_ch // self.feature_group_count, self.features),
             self.param_dtype)
-        if params_only:  # expose raw params to fused/packed callers
-            bias = self.param("bias", nn.initializers.zeros,
+        if params_only:  # raw params for the packed island head
+            bias = self.param("bias", jax.nn.initializers.zeros,
                               (self.features,), self.param_dtype) \
                 if self.use_bias else None
             return kernel, bias
         pad = self.padding if isinstance(self.padding, tuple) else (
             self.padding, self.padding)
-        pad_pairs = [p if isinstance(p, tuple) else (p, p) for p in pad]
-        if self.quantize in ("int8", "int8_static") \
-                and self.accum_dtype is None:
-            from vdn.ops.int8_conv import int8_conv, int8_conv_enabled
-            static = self.quantize == "int8_static"
-            calibrating = False
-            amax_val = None
-            if static:
-                # calibrated per-tensor activation scale (PTQ): an apply
-                # with mutable=["quant_stats"] records the float
-                # activation absmax and runs the FLOAT conv (calibration
-                # is bit-identical to the float path); serving reads the
-                # stored scale.  Calibration state is resolved at TRACE
-                # time (has_variable): the stats variable only exists
-                # after a calibration pass merged it into the variables,
-                # so an uncalibrated apply traces the dynamic per-frame
-                # path and a calibrated one traces the static path with
-                # no runtime branch — a lax.cond here would wall off the
-                # producer fusion that static scales exist to enable.
-                calibrating = self.is_mutable_collection("quant_stats") \
-                    and not self.is_initializing()
-                if calibrating:
-                    amax = self.variable("quant_stats", "act_amax",
-                                         lambda: jnp.zeros((), jnp.float32))
-                    amax.value = jnp.maximum(
-                        amax.value, jnp.max(jnp.abs(x.astype(jnp.float32))))
-                elif self.has_variable("quant_stats", "act_amax"):
-                    amax_val = self.get_variable("quant_stats", "act_amax")
-            if int8_conv_enabled(x, kernel.shape, tuple(self.stride),
-                                 static=static) \
-                    and self.feature_group_count == 1:
-                y = None
-                if static and not calibrating:
-                    y = int8_conv(x, kernel, tuple(self.stride), pad_pairs,
-                                  amax=amax_val)
-                elif not static:
-                    y = int8_conv(x, kernel, tuple(self.stride), pad_pairs)
-                if y is not None:
-                    if self.use_bias:
-                        bias = self.param("bias", nn.initializers.zeros,
-                                          (self.features,), self.param_dtype)
-                        y = y + bias.astype(y.dtype)
-                    return y
         conv = _conv_nhwc_accum if (
             self.accum_dtype is not None
             and self.accum_dtype != jnp.result_type(x)) else _conv_nhwc
         y = conv(x, kernel.astype(x.dtype), tuple(self.stride), pad,
                  self.feature_group_count, self.accum_dtype)
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros,
+            bias = self.param("bias", jax.nn.initializers.zeros,
                               (self.features,), self.param_dtype)
             y = y + bias.astype(y.dtype)
         return y
@@ -168,13 +120,13 @@ class ConvTranspose2d(nn.Module):
         kh, kw = self.kernel_size
         kernel = self.param(
             "kernel",
-            nn.initializers.variance_scaling(1 / 3, "fan_in", "uniform"),
+            jax.nn.initializers.variance_scaling(1 / 3, "fan_in", "uniform"),
             (kh, kw, x.shape[-1], self.features), self.param_dtype)
         y = lax.conv_transpose(
             x, kernel.astype(x.dtype), strides=self.stride, padding="VALID",
             dimension_numbers=("NHWC", "HWIO", "NHWC"))
         if self.use_bias:
-            bias = self.param("bias", nn.initializers.zeros,
+            bias = self.param("bias", jax.nn.initializers.zeros,
                               (self.features,), self.param_dtype)
             y = y + bias.astype(y.dtype)
         return y
@@ -185,14 +137,12 @@ class LayerNorm(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
+    def __call__(self, x):
         dim = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (dim,),
+        scale = self.param("scale", jax.nn.initializers.ones, (dim,),
                            self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros, (dim,),
+        bias = self.param("bias", jax.nn.initializers.zeros, (dim,),
                           self.param_dtype)
-        if params_only:  # expose raw params to fused Pallas callers
-            return scale, bias
         xf = x.astype(jnp.float32)
         mean = xf.mean(-1, keepdims=True)
         var = jnp.mean(jnp.square(xf - mean), -1, keepdims=True)
@@ -211,9 +161,9 @@ class GroupNorm(nn.Module):
     def __call__(self, x):
         ch = x.shape[-1]
         g = self.num_groups
-        scale = self.param("scale", nn.initializers.ones, (ch,),
+        scale = self.param("scale", jax.nn.initializers.ones, (ch,),
                            self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros, (ch,),
+        bias = self.param("bias", jax.nn.initializers.zeros, (ch,),
                           self.param_dtype)
         orig_shape = x.shape
         xf = x.astype(jnp.float32).reshape(orig_shape[0], -1, g, ch // g)
@@ -229,16 +179,16 @@ class Linear(nn.Module):
     features: int
     use_bias: bool = True
     param_dtype: Dtype = jnp.float32
-    kernel_init: Callable = nn.initializers.lecun_normal()
+    kernel_init: Callable = jax.nn.initializers.lecun_normal()
 
     @nn.compact
     def __call__(self, x, *, params_only: bool = False):
         kernel = self.param("kernel", self.kernel_init,
                             (x.shape[-1], self.features), self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros,
+        bias = self.param("bias", jax.nn.initializers.zeros,
                           (self.features,), self.param_dtype) \
             if self.use_bias else None
-        if params_only:  # expose raw params to fused Pallas callers
+        if params_only:  # raw params for head-major projections
             return kernel, bias
         y = jnp.matmul(x, kernel.astype(x.dtype))
         if bias is not None:
@@ -254,19 +204,12 @@ class Mlp(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
-        fc1 = Linear(self.hidden_features, self.use_bias,
-                     self.param_dtype, name="fc1")
-        fc2 = Linear(self.out_features, self.use_bias,
-                     self.param_dtype, name="fc2")
-        if params_only:  # expose raw params to fused Pallas callers
-            w1b1 = fc1(x, params_only=True)
-            hidden = jnp.zeros(x.shape[:-1] + (self.hidden_features,),
-                               x.dtype)
-            return w1b1, fc2(hidden, params_only=True)
-        x = fc1(x)
+    def __call__(self, x):
+        x = Linear(self.hidden_features, self.use_bias, self.param_dtype,
+                   name="fc1")(x)
         x = jax.nn.gelu(x, approximate=False)
-        return fc2(x)
+        return Linear(self.out_features, self.use_bias, self.param_dtype,
+                      name="fc2")(x)
 
 
 class SwiGLUFFN(nn.Module):
@@ -277,14 +220,9 @@ class SwiGLUFFN(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
-        w12 = Linear(2 * self.hidden_features, True, self.param_dtype,
-                     name="w12")
-        w3 = Linear(self.out_features, True, self.param_dtype, name="w3")
-        if params_only:  # expose raw params to fused Pallas callers
-            hidden = jnp.zeros(x.shape[:-1] + (self.hidden_features,),
-                               x.dtype)
-            return w12(x, params_only=True), w3(hidden, params_only=True)
-        x12 = w12(x)
+    def __call__(self, x):
+        x12 = Linear(2 * self.hidden_features, True, self.param_dtype,
+                     name="w12")(x)
         x1, x2 = jnp.split(x12, 2, axis=-1)
-        return w3(jax.nn.silu(x1) * x2)
+        return Linear(self.out_features, True, self.param_dtype,
+                      name="w3")(jax.nn.silu(x1) * x2)

@@ -7,7 +7,7 @@ sam/transformer.py:189-311 RoPEAttention, position_encoding.py:16-239):
 
 - the python deque memory bank (memory_bank.py:3-23, maxlen=6) becomes a
   fixed-capacity, right-aligned ring buffer [B, L, HW, C] + a count; invalid
-  slots are masked out of the cross-attention with a -inf logits bias, which
+  slots are masked out of the cross-attention with a boolean key mask, which
   is jit-static and matches the reference's variable-length concat exactly
 - 2-D axial RoPE is real-valued (vdn.ops.rope.axial_rope_freqs)
 - the memory encoder (sigmoid(depth) -> stride-2*7 mask pyramid -> ConvNeXt
@@ -21,11 +21,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, LayerNorm, Linear
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.rope import apply_rope, axial_rope_freqs
@@ -72,7 +72,7 @@ class RoPEAttention(nn.Module):
 
     @nn.compact
     def __call__(self, q, k, v, grid_hw: Tuple[int, int],
-                 bias: Optional[jnp.ndarray] = None,
+                 mask: Optional[jnp.ndarray] = None,
                  num_k_exclude_rope: int = 0):
         """num_k_exclude_rope: trailing kv tokens (SAM2 object pointers)
         that skip the rotary encoding (reference transformer.py:293-302)."""
@@ -105,13 +105,7 @@ class RoPEAttention(nn.Module):
         q = q.transpose(0, 2, 1, 3)
         k = k.transpose(0, 2, 1, 3)
 
-        # auto backend: the memory cross-attention (1369 queries x
-        # cap*1369 kv) dominated the single-image step on the XLA path
-        # (materialized [H, Tq, ~8k] fp32 logits; 5.0 of 9.5 ms/frame,
-        # trace 2026-08-20) — the full-K flash kernel takes it with the
-        # slot mask as a per-column bias (flash_attention_colbias);
-        # short/CPU shapes keep XLA via flash_enabled
-        out = dot_product_attention(q, k, v, bias=bias)
+        out = dot_product_attention(q, k, v, mask=mask)
         out = out.reshape(b, nq, c)
         return Linear(c, param_dtype=self.param_dtype, name="out_proj")(out)
 
@@ -131,7 +125,7 @@ class MemoryAttentionLayer(nn.Module):
 
     @nn.compact
     def __call__(self, tgt, memory, query_pos, grid_hw,
-                 bias: Optional[jnp.ndarray] = None,
+                 mask: Optional[jnp.ndarray] = None,
                  memory_pos: Optional[jnp.ndarray] = None,
                  num_k_exclude_rope: int = 0):
         pd = self.param_dtype
@@ -149,7 +143,7 @@ class MemoryAttentionLayer(nn.Module):
             k_in = memory + memory_pos
         t2 = RoPEAttention(self.d_model, self.num_heads, True, pd,
                            name="cross_attn_image")(
-                               q_in, k_in, memory, grid_hw, bias=bias,
+                               q_in, k_in, memory, grid_hw, mask=mask,
                                num_k_exclude_rope=num_k_exclude_rope)
         tgt = tgt + t2
         # FFN
@@ -176,7 +170,7 @@ class MemoryAttention(nn.Module):
 
     @nn.compact
     def __call__(self, curr, memory, curr_pos, grid_hw,
-                 bias: Optional[jnp.ndarray] = None,
+                 mask: Optional[jnp.ndarray] = None,
                  memory_pos: Optional[jnp.ndarray] = None,
                  num_k_exclude_rope: int = 0):
         out = curr + 0.1 * curr_pos
@@ -188,7 +182,7 @@ class MemoryAttention(nn.Module):
                 self.pos_enc_at_cross_attn_queries,
                 self.pos_enc_at_cross_attn_keys,
                 name=f"layers_{i}")(
-                    out, memory, curr_pos, grid_hw, bias=bias,
+                    out, memory, curr_pos, grid_hw, mask=mask,
                     memory_pos=memory_pos,
                     num_k_exclude_rope=num_k_exclude_rope)
         return LayerNorm(epsilon=1e-5, param_dtype=self.param_dtype,
@@ -235,7 +229,7 @@ class CXBlock(nn.Module):
         x = jax.nn.gelu(x, approximate=False)
         x = Linear(self.dim, param_dtype=self.param_dtype, name="pwconv2")(x)
         gamma = self.param("gamma",
-                           nn.initializers.constant(1e-6),
+                           jax.nn.initializers.constant(1e-6),
                            (self.dim,), self.param_dtype)
         return inp + gamma.astype(x.dtype) * x
 
@@ -294,12 +288,12 @@ class MemoryBlock(nn.Module):
         self.memory_attention = MemoryAttention(
             c, c // 64, self.num_attention_layers, pd)
         self.curr_pos_enc = self.param(
-            "curr_pos_enc", nn.initializers.normal(0.02), (1, 1, c), pd)
+            "curr_pos_enc", jax.nn.initializers.normal(0.02), (1, 1, c), pd)
         self.maskmem_tpos_enc = self.param(
-            "maskmem_tpos_enc", nn.initializers.normal(0.02),
+            "maskmem_tpos_enc", jax.nn.initializers.normal(0.02),
             (1, self.max_memory_length, c), pd)
         self.no_mem_embed = self.param(
-            "no_mem_embed", nn.initializers.normal(0.02), (1, 1, c), pd)
+            "no_mem_embed", jax.nn.initializers.normal(0.02), (1, 1, c), pd)
         self.memory_encoder = MemoryEncoder(c, pd)
 
     def __call__(self, img_feature: jnp.ndarray, grid_hw: Tuple[int, int],
@@ -322,11 +316,9 @@ class MemoryBlock(nn.Module):
         mem = mem.reshape(b, cap * hw, c)
         # mask invalid (not-yet-written) slots out of the softmax
         slot_valid = (jnp.arange(cap) >= cap - state["count"])
-        bias = jnp.where(
-            jnp.repeat(slot_valid, hw), 0.0, -jnp.inf).astype(jnp.float32)
-        bias = bias[None, None, None, :]  # [1,1,1,cap*hw]
+        mask = jnp.repeat(slot_valid, hw)[None, None, None, :]
         return self.memory_attention(img_feature, mem, curr_pos, grid_hw,
-                                     bias=bias)
+                                     mask=mask)
 
     def encode(self, img_feature: jnp.ndarray, depth: jnp.ndarray,
                grid_hw: Tuple[int, int]):

@@ -1,4 +1,4 @@
-"""Temporal motion modules (AnimateDiff-style), TPU-native.
+"""Temporal motion modules (AnimateDiff-style).
 
 Re-design of the reference temporal attention stack
 (reference video_depth_anything/motion_module/motion_module.py:32-326 and
@@ -10,24 +10,20 @@ Differences from the reference by design:
   spatial axes with plain reshapes+transposes (XLA fuses these)
 - the KV cache is a pytree of fixed-shape arrays, not a python list of
   tensors, so streaming decode jits with static shapes
-- softmax always fp32 (TPU policy; reference runs fp16 under autocast)
+- softmax always fp32 (the reference runs fp16 under autocast)
 
 Cache contract (matches reference list order dpt_temporal.py:74-96):
 each TemporalModule produces ``num_transformer_block * num_attention_blocks``
 cache entries and consumes the same number from the previous window.
 
-Entry format (round 5): POSITION-FREE PACKED K/V, shape
-[heads * B*H*W, T, 2 * dh] with lanes [K(dh) ‖ V(dh)], head-major rows.
-The reference (and rounds 1-4) cached the attention-block *inputs* and
-re-projected the whole ring through to_k/to_v every step — but ring
-entries are immutable and the projections are linear, so K/V are
-cacheable, and the window APE separates by linearity exactly like the
-chunk-window algebra: K(entry at window pos p) = K_cached + to_k(pe[p]).
-Deleting the per-step ring re-projections removes 2*N*CAP*C^2 MXU FLOPs
-per attention block per chunk AND the [h, n, cap, dh] head-split
-relayout copies the projections forced (4 x 1.15 ms per chunk at the
-finest vitl module, trace 2026-08-20).  Head-major rows keep the
-attention dots' batch axes on sublanes (no relayout at read time).
+Entry format: POSITION-FREE PACKED K/V, shape [heads * B*H*W, T, 2 * dh]
+with lanes [K(dh) ‖ V(dh)], head-major rows.  The reference caches the
+attention-block *inputs* and re-projects the whole ring through to_k/to_v
+every step — but ring entries are immutable and the projections are
+linear, so K/V are cacheable, and the window APE separates by linearity
+exactly like the chunk-window algebra: K(entry at window pos p) =
+K_cached + to_k(pe[p]).  That deletes the per-step ring re-projections
+(2*N*CAP*C^2 FLOPs per attention block per chunk).
 """
 
 from __future__ import annotations
@@ -36,11 +32,11 @@ import functools
 import math
 from typing import Any, List, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vdn.nn import module as nn
 from vdn.nn.layers import GroupNorm, LayerNorm, Linear
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.rope import apply_rope, temporal_rope_freqs
@@ -60,18 +56,16 @@ def sinusoidal_positional_encoding(d_model: int, max_len: int) -> np.ndarray:
 
 
 def ring_lane_width(dh: int) -> int:
-    """Packed K/V ring lane width: 2*dh, padded up to 128 lanes — XLA
-    gave 64-lane rings rows-minor layouts and every read paid relayout
-    copies (trace 2026-08-21); the pad region is zeros and the reading
-    dots are MXU-padding-bound, so the wider contraction is free."""
+    """Packed K/V ring lane width: 2*dh, padded up to 128 with zeros.
+    The pad is a memory-layout choice whose worth on the GPU is an open
+    A/B (ROADMAP speed queue)."""
     return max(2 * dh, 128)
 
 
 def _pack_ring_entry(k, v, dpad: int):
     """k/v [h, n, t, dh] head-major -> [h*n, t, dpad] packed ring entry
     (lanes = [K(dh) | V(dh) | zero pad]).  The (h, n) merge is a free
-    leading-dims reshape; t is the chunk length (sublane-aligned in the
-    k=8 serving mode)."""
+    leading-dims reshape; t is the chunk length."""
     h, n, t, dh = k.shape
     parts = [k, v]
     if dpad > 2 * dh:
@@ -84,12 +78,9 @@ class GEGLU(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
-        proj = Linear(self.dim_out * 2, param_dtype=self.param_dtype,
-                      name="proj")
-        if params_only:  # expose raw params to fused Pallas callers
-            return proj(x, params_only=True)
-        y = proj(x)
+    def __call__(self, x):
+        y = Linear(self.dim_out * 2, param_dtype=self.param_dtype,
+                   name="proj")(x)
         hidden, gate = jnp.split(y, 2, axis=-1)
         return hidden * jax.nn.gelu(gate, approximate=False)
 
@@ -102,15 +93,10 @@ class FeedForward(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
-        inner = self.dim * self.mult
-        net_0 = GEGLU(inner, self.param_dtype, name="net_0")
-        net_2 = Linear(self.dim, param_dtype=self.param_dtype, name="net_2")
-        if params_only:  # ((w0, b0), (w2, b2)) for the fused GEGLU kernel
-            w0b0 = net_0(x, params_only=True)
-            hidden = jnp.zeros(x.shape[:-1] + (inner,), x.dtype)
-            return w0b0, net_2(hidden, params_only=True)
-        return net_2(net_0(x))
+    def __call__(self, x):
+        y = GEGLU(self.dim * self.mult, self.param_dtype, name="net_0")(x)
+        return Linear(self.dim, param_dtype=self.param_dtype,
+                      name="net_2")(y)
 
 
 class TemporalAttention(nn.Module):
@@ -162,40 +148,6 @@ class TemporalAttention(nn.Module):
             return self._cached_cp(x, cache, cache_len, c)
         if cache is not None and self.pos_embedding_type == "ape":
             return self._cached_local(x, cache, c)
-
-        from vdn.ops.pallas.temporal_attention import (
-            fused_temporal_enabled, temporal_attention_block)
-        if (cache is None and self.seq_axis is None
-                and self.pos_embedding_type == "ape"
-                and t_new % 8 == 0  # Mosaic sublane split of [P*t, dh]
-                and fused_temporal_enabled()):
-            # TPU clip path: the whole APE+qkv+window-attention+out-proj
-            # block in one Pallas kernel (the XLA lowering of this tiny-T
-            # shape pays relayout copies and 25%-lane softmax passes —
-            # see vdn/ops/pallas/temporal_attention.py)
-            pe = jnp.asarray(sinusoidal_positional_encoding(
-                self.query_dim, self.temporal_max_len))[:t_new]
-            wq, _ = Linear(c, use_bias=False, param_dtype=self.param_dtype,
-                           name="to_q")(x, params_only=True)
-            wk, _ = Linear(c, use_bias=False, param_dtype=self.param_dtype,
-                           name="to_k")(x, params_only=True)
-            wv, _ = Linear(c, use_bias=False, param_dtype=self.param_dtype,
-                           name="to_v")(x, params_only=True)
-            wo, bo = Linear(self.query_dim, param_dtype=self.param_dtype,
-                            name="to_out_0")(x, params_only=True)
-            out = temporal_attention_block(
-                x, pe, wq, wk, wv, wo, bo, self.heads,
-                float((c // self.heads) ** -0.5))
-            # position-free packed K/V ring entry; XLA DCEs these two
-            # projections whenever the caller drops the caches (the
-            # clip pipeline) — only the stream's first frame pays them
-            h, dh = self.heads, c // self.heads
-            hv = lambda w_: w_.astype(x.dtype).reshape(
-                c, h, dh).transpose(1, 0, 2)
-            k_e = jnp.einsum("ntc,hcd->hntd", x, hv(wk))
-            v_e = jnp.einsum("ntc,hcd->hntd", x, hv(wv))
-            entry = _pack_ring_entry(k_e, v_e, ring_lane_width(dh))
-            return out, entry
 
         d_in = 0
         if cache is not None:
@@ -260,8 +212,7 @@ class TemporalAttention(nn.Module):
             out = dot_product_attention(
                 query.reshape(bn, t_new, h, dh),
                 key.reshape(bn, t_total, h, dh),
-                value.reshape(bn, t_total, h, dh),
-                use_flash=False)  # frame axis is short; XLA path wins
+                value.reshape(bn, t_total, h, dh))
         out = out.reshape(bn, t_new, c)
         out = Linear(self.query_dim, param_dtype=self.param_dtype,
                      name="to_out_0")(out)
@@ -280,8 +231,7 @@ class TemporalAttention(nn.Module):
 
     def _weights_hview(self, x, c):
         """(wq_h, wk_h, wv_h, wo, bo): q/k/v weights viewed [h, C, dh]
-        (projections emit head-major straight from the MXU) + raw
-        out-proj params."""
+        (projections emit head-major directly) + raw out-proj params."""
         dt = x.dtype
         h = self.heads
         wq, _ = Linear(c, use_bias=False, param_dtype=self.param_dtype,
@@ -303,10 +253,8 @@ class TemporalAttention(nn.Module):
         projected ONCE when each entry was written; the window APE
         attaches by linearity (K at window pos p = K_cached + to_k(pe[p]),
         same algebra as _chunk_window).  No concat([cache, new]) is ever
-        materialized (the [B*N, 31+1, C] concats were the single largest
-        data-movement cost of the streaming scan, trace 2026-08-17) and
-        no ring re-projection runs (2*N*31*C^2 FLOPs per block deleted,
-        round 5)."""
+        materialized and no ring re-projection runs (2*N*31*C^2 FLOPs per
+        block)."""
         bn, t_new = x_new.shape[0], x_new.shape[1]
         h, dh = self.heads, c // self.heads
         d_in = cache.shape[1]
@@ -399,37 +347,24 @@ class TemporalAttention(nn.Module):
 
         pe = jnp.asarray(sinusoidal_positional_encoding(
             self.query_dim, w)).astype(x.dtype)
-        # HEAD-MAJOR algebra: projections emit [h, n, *, dh] straight
-        # from the MXU via weights reshaped [h, C, dh], and the
-        # out-projection contracts (h, dh) back to [n, k, C] in one dot
-        # — the earlier [n, *, C] -> [n, *, h, dh] einsum head splits
-        # forced 1.15 ms layout copies per K/V tensor at the finest
-        # module (N=5476 stream trace 2026-08-20); this form has no
-        # relayout at all.  The ring holds position-free packed K/V
-        # [h*n, cap, 2*dh] (round 5), so the per-chunk ring
-        # re-projections (2 MXU dots + their layout copies per block)
-        # are gone entirely — only the k new frames project.
+        # HEAD-MAJOR algebra: projections emit [h, n, *, dh] directly
+        # via weights reshaped [h, C, dh], and the out-projection
+        # contracts (h, dh) back to [n, k, C] in one dot, so no head
+        # split or merge is materialized.  The ring holds position-free
+        # packed K/V [h*n, cap, 2*dh], so only the k new frames project.
         dt = x.dtype
         wq_h, wk_h, wv_h, wo, bo = self._weights_hview(x, c)
         proj = functools.partial(jnp.einsum, "njc,hcd->hnjd")
 
         qh = proj(x + pe[w - 1], wq_h)                   # [h, n, kf, dh]
         # ring and in-chunk columns stay SEPARATE operands: a
-        # [h, n, cap+k, dh] concat forces a full relayout copy of both
-        # K and V (1.16 ms each at N=5476); concatenating in the tiny
-        # fp32 logits space (and slicing probs) is absorbed into the
-        # dots instead
+        # [h, n, cap+k, dh] concat would copy both K and V; concatenating
+        # in the tiny fp32 logits space (and slicing probs) is cheaper
         k_n, v_n = proj(x, wk_h), proj(x, wv_h)          # position-free
-        # The ring is consumed in EXACTLY its stored 3-D shape with the
-        # flat r = h*n batch axis: any [h, n, cap, d] view materializes
-        # (n=1369/5476 is not sublane-aligned, so the 4-D retile is a
-        # real copy — same class as the round-4 [B,N,C]<->[B*N,C]
-        # finding), and lane-splitting K/V halves materialized 1-2 ms
-        # copies per block at dh=32.  Instead the packed ring feeds the
-        # dots directly: zero-padded q contracts the full padded width
-        # (these dots are MXU-padding-bound, so the wider contraction is
-        # free) and the AV output slices [dh:2dh] (j-sized, ~5x smaller
-        # than the ring).  Lanes pad to >=128 so XLA keeps them minor.
+        # The ring is consumed in its stored 3-D shape with the flat
+        # r = h*n batch axis, without splitting the K/V halves: the
+        # zero-padded q contracts the full packed width and the AV
+        # output slices [dh:2dh] (j-sized, ~5x smaller than the ring).
         r = h * n
         dpad = ring_lane_width(dh)
         kv3 = buf.astype(dt)                             # [r, cap, dpad]
@@ -575,17 +510,7 @@ class TemporalTransformerBlock(nn.Module):
             out_caches.append(cache_entry)
         ff_norm = LayerNorm(param_dtype=self.param_dtype, name="ff_norm")
         ff = FeedForward(self.dim, param_dtype=self.param_dtype, name="ff")
-        from vdn.ops.pallas.geglu import (fused_geglu_enabled,
-                                          fused_ln_geglu_residual)
-        if fused_geglu_enabled():
-            # TPU: LN + GEGLU + net_2 + residual in one Pallas kernel —
-            # XLA's lowering re-evaluates the exact-erf GEGLU for every
-            # net_2 output column tile (see vdn/ops/pallas/geglu.py)
-            ls, lb = ff_norm(x, params_only=True)
-            (w0, b0), (w2, b2) = ff(x, params_only=True)
-            x = fused_ln_geglu_residual(x, ls, lb, w0, b0, w2, b2)
-        else:
-            x = ff(ff_norm(x)) + x
+        x = ff(ff_norm(x)) + x
         return x, out_caches
 
 
@@ -614,9 +539,7 @@ class TemporalTransformer3D(nn.Module):
         y = GroupNorm(self.norm_num_groups, epsilon=1e-6,
                       param_dtype=self.param_dtype, name="norm")(x)
         # relayout ONCE to token-major [(B*N), T, C]: every attention
-        # block, LN, FF, and projection then runs transpose-free (the
-        # per-block (b t) n c <-> (b n) t c relayouts used to fuse into
-        # the projection dots at up to 26x over peak — trace 2026-08-18)
+        # block, LN, FF, and projection then runs transpose-free
         y = y.reshape(b, t, n, c).transpose(0, 2, 1, 3).reshape(b * n, t, c)
         y = Linear(c, param_dtype=self.param_dtype, name="proj_in")(y)
 
@@ -636,7 +559,7 @@ class TemporalTransformer3D(nn.Module):
         # zero-initialized so the temporal mixer starts as identity
         # (reference motion_module.py:57-58 zero_initialize)
         y = Linear(self.in_channels, param_dtype=self.param_dtype,
-                   kernel_init=nn.initializers.zeros, name="proj_out")(y)
+                   kernel_init=jax.nn.initializers.zeros, name="proj_out")(y)
         y = y.reshape(b, n, t, c).transpose(0, 2, 1, 3).reshape(
             bt, hh, ww, c)
         return y + residual, out_caches

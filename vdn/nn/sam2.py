@@ -1,4 +1,4 @@
-"""SAM2 promptable-segmentation components, TPU-native.
+"""SAM2 promptable-segmentation components.
 
 Re-design of the vendored SAM2 modeling tree the reference ships
 (reference sam2/modeling/): FPN image encoder neck
@@ -14,11 +14,11 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, ConvTranspose2d, LayerNorm, Linear
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.resize import interpolate_like_torch
@@ -70,8 +70,7 @@ class SamAttention(nn.Module):
         nk = k.shape[1]
         out = dot_product_attention(q.reshape(b, nq, h, c // h),
                                     k.reshape(b, nk, h, c // h),
-                                    v.reshape(b, nk, h, c // h),
-                                    use_flash=False)
+                                    v.reshape(b, nk, h, c // h))
         out = out.reshape(b, nq, c)
         return Linear(self.embedding_dim, param_dtype=pd,
                       name="out_proj")(out)
@@ -479,7 +478,7 @@ class _RandomPositionEncoding(nn.Module):
     def setup(self):
         self.positional_encoding_gaussian_matrix = self.param(
             "positional_encoding_gaussian_matrix",
-            nn.initializers.normal(1.0), (2, self.num_pos_feats),
+            jax.nn.initializers.normal(1.0), (2, self.num_pos_feats),
             self.param_dtype)
 
     def encode(self, coords: jnp.ndarray) -> jnp.ndarray:

@@ -21,12 +21,12 @@ from __future__ import annotations
 import math
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from vdn.models.refine import BatchNorm2d
+from vdn.nn import module as nn
 from vdn.nn.layers import Conv2d, ConvTranspose2d, LayerNorm, Linear
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.resize import resize2d
@@ -62,8 +62,7 @@ class MultiheadSelfAttention(nn.Module):
         dh = c // h
         out = dot_product_attention(q.reshape(b, t, h, dh),
                                     k.reshape(b, t, h, dh),
-                                    v.reshape(b, t, h, dh),
-                                    use_flash=False)
+                                    v.reshape(b, t, h, dh))
         out = out.reshape(b, t, c)
         return Linear(c, param_dtype=self.param_dtype, name="out_proj")(out)
 
@@ -149,16 +148,16 @@ class VideoDepthHeadSangyu(nn.Module):
         ch = self.feature_channels
         if self.pe == "ape":
             self.pos_embeds_0 = self.param(
-                "pos_embeds_0", nn.initializers.normal(0.02),
+                "pos_embeds_0", jax.nn.initializers.normal(0.02),
                 (self.sequence_length, ch[0]), pd)
             self.pos_embeds_1 = self.param(
-                "pos_embeds_1", nn.initializers.normal(0.02),
+                "pos_embeds_1", jax.nn.initializers.normal(0.02),
                 (self.sequence_length, ch[1]), pd)
             self.pos_embeds_2 = self.param(
-                "pos_embeds_2", nn.initializers.normal(0.02),
+                "pos_embeds_2", jax.nn.initializers.normal(0.02),
                 (self.sequence_length, ch[2]), pd)
             self.pos_embeds_3 = self.param(
-                "pos_embeds_3", nn.initializers.normal(0.02),
+                "pos_embeds_3", jax.nn.initializers.normal(0.02),
                 (self.sequence_length, ch[3]), pd)
         kw = dict(num_heads=8, num_blocks=4, param_dtype=pd)
         self.temporal_layers_first = [
@@ -300,11 +299,11 @@ class ConvTransposeTorch(nn.Module):
         # correlate with spatially flipped kernel (flip is baked into the
         # stored kernel by the converter, HWIO layout)
         kernel = self.param("kernel",
-                            nn.initializers.variance_scaling(
+                            jax.nn.initializers.variance_scaling(
                                 1 / 3, "fan_in", "uniform"),
                             (4, 4, x.shape[-1], self.features),
                             self.param_dtype)
-        bias = self.param("bias", nn.initializers.zeros,
+        bias = self.param("bias", jax.nn.initializers.zeros,
                           (self.features,), self.param_dtype)
         y = jax.lax.conv_general_dilated(
             x, kernel.astype(x.dtype), window_strides=(1, 1),

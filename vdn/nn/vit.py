@@ -1,8 +1,9 @@
-"""DINOv2 vision transformer, TPU-native.
+"""DINOv2 vision transformer.
 
 Re-design of the reference encoder (reference depth_anything_v2/dinov2.py:44-415
-and dinov2_layers/) in flax: NHWC input, [B, N, C] tokens, fp32 LayerNorm /
-softmax islands, optional remat for training, and a flash-attention hot path.
+and dinov2_layers/): NHWC input, [B, N, C] tokens, fp32 LayerNorm /
+softmax islands, optional remat for training, and fused attention
+(vdn.ops.attention).
 Checkpoints convert 1:1 (see vdn/core/convert.py); forward matches the torch
 reference to fp32 tolerance (tests/test_vit_parity.py).
 
@@ -18,11 +19,11 @@ from __future__ import annotations
 import math
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.ad_checkpoint import checkpoint_name
 
+from vdn.nn import module as nn
 from vdn.nn.layers import LayerNorm, Linear, Mlp, SwiGLUFFN, Conv2d
 from vdn.ops.attention import dot_product_attention
 from vdn.ops.resize import interpolate_like_torch
@@ -46,37 +47,9 @@ INTERMEDIATE_LAYER_IDX = {
 }
 
 
-# Block remat saves the two Pallas forward outputs instead of recomputing
-# them in the backward: `flash_out` (named in the flash custom_vjp fwd —
-# its VJP wants the forward output anyway for the FlashAttention-2 delta)
-# and `attn_res` (the attention-residual midpoint — the fused-MLP VJP's
-# recompute root).  With both saved, the flash and fused-MLP forward
-# kernels are dead code in the remat recompute; what still recomputes per
-# block is the cheap glue (LN1, qkv matmul, out-proj).  Costs two extra
-# [B, N, C] saves per block over full remat — still far below no-remat.
-REMAT_POLICY = jax.checkpoint_policies.save_only_these_names(
-    "flash_out", "flash_lse", "attn_res")
-
-# + the fused qkv projection buffer: the flash VJP reads it directly
-# (zero-staging backward), so saving it makes the qkv matmul dead code
-# in the remat recompute too — deletes a near-peak [B*N, C]x[C, 3C]
-# matmul per block from the backward (~0.75 ms/layer at vitl b2t8).
-# A/B'd 2026-08-20 and LOST: each save costs [B, N, 3C] bf16 (135 MB at
-# b2t8; all 24 OOM 17.05/15.75 GB), and even partial saves push XLA
-# into remat-compression copies that cost more than the deleted
-# matmuls — 12 saves: 689.6 ms, 6 saves: 686.0 ms vs 674.9 baseline
-# (XLA-counted FLOPs DID drop 76.2T -> 74.5T, so the recompute was
-# genuinely eliminated; the scheduler gave the win back).  Kept behind
-# VDN_REMAT_SAVE_QKV_LAYERS (default 0) for future rigs with more HBM
-# headroom (e.g. b1 or larger chips).
-REMAT_POLICY_SAVE_QKV = jax.checkpoint_policies.save_only_these_names(
-    "flash_out", "flash_lse", "attn_res", "qkv_buf")
-
-
-def remat_policy(n_save_qkv: int = 0):
-    if n_save_qkv > 0:
-        return REMAT_POLICY_SAVE_QKV
-    return REMAT_POLICY
+# Block remat keeps the attention-residual midpoint of each block, so the
+# backward recomputes each half of the block from a saved input once.
+REMAT_POLICY = jax.checkpoint_policies.save_only_these_names("attn_res")
 
 
 class PatchEmbed(nn.Module):
@@ -93,12 +66,9 @@ class PatchEmbed(nn.Module):
         if h % p or w % p:  # ragged input: let the conv drop the remainder
             y = proj(x)
             return y.reshape(b, -1, self.embed_dim)
-        # non-overlapping stride-p conv == unfold + one big matmul.  XLA
-        # lowers the C_in=3 conv itself at ~3% MXU (the im2col of the
-        # [B, 518, 518, 3] frame dominates); the explicit unfold runs the
-        # 52 GFLOP projection on the MXU directly (~8 ms/window saved,
-        # trace 2026-08-18).  Matches reference dinov2_layers/
-        # patch_embed.py:66-73 (proj conv + flatten) exactly.
+        # non-overlapping stride-p conv == unfold + one matmul, which
+        # avoids a C_in=3 conv over the full frame.  Matches reference
+        # dinov2_layers/patch_embed.py:66-73 (proj conv + flatten) exactly.
         kernel, bias = proj(x, params_only=True)
         gh, gw = h // p, w // p
         xt = x.reshape(b, gh, p, gw, p, cin).transpose(0, 1, 3, 2, 4, 5)
@@ -113,87 +83,26 @@ class LayerScale(nn.Module):
     param_dtype: Dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, params_only: bool = False):
-        gamma = self.param("gamma", nn.initializers.ones, (self.dim,),
+    def __call__(self, x):
+        gamma = self.param("gamma", jax.nn.initializers.ones, (self.dim,),
                            self.param_dtype)
-        if params_only:  # expose raw params to fused Pallas callers
-            return gamma
         return x * gamma.astype(x.dtype)
 
 
 class Attention(nn.Module):
     num_heads: int
     param_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
-    quantize: Optional[str] = None  # "int8": W8A8-dynamic qkv/proj dots
-    save_qkv: bool = False  # name the fused qkv buffer for the remat
-    #                         policy (see REMAT_POLICY_SAVE_QKV)
 
     @nn.compact
-    def __call__(self, x, ln=None, residual=None, gamma=None):
-        """x [B, N, C].  On the int8 serving path the caller passes the
-        pre-LN tokens plus (ln scale, bias) — the LN runs inside the qkv
-        kernel — and `residual`/`gamma` to absorb the LayerScale +
-        block-residual into the out-projection kernel (with Pallas calls
-        on both sides those epilogues would otherwise become standalone
-        VPU passes over HBM; see vdn/ops/pallas/int8.py)."""
-        from vdn.ops.attention import flash_enabled
-
+    def __call__(self, x):
+        """x [B, N, C] -> [B, N, C]."""
         b, n, c = x.shape
         h = self.num_heads
-        qkv_lin = Linear(3 * c, param_dtype=self.param_dtype, name="qkv")
-        if self._int8(b * n):
-            from vdn.ops.pallas.int8 import int8_ln_linear, int8_linear
-            wq, bq = qkv_lin(x, params_only=True)
-            if ln is not None:
-                qkv = int8_ln_linear(x, ln[0], ln[1], wq, bq)
-            else:
-                qkv = int8_linear(x, wq, bq)
-        else:
-            assert ln is None  # float path: caller pre-norms
-            qkv = qkv_lin(x)
-            if self.save_qkv:
-                qkv = checkpoint_name(qkv, "qkv_buf")
+        qkv = Linear(3 * c, param_dtype=self.param_dtype, name="qkv")(x)
         qkv = qkv.reshape(b, n, 3, h, c // h)
-        use_flash = self.use_flash
-        if use_flash is None:
-            use_flash = flash_enabled(n, n)
-        if use_flash:
-            # zero-staging path: the kernel block-views q/k/v straight out
-            # of the fused projection and writes [B,T,H,D], so no [B,H,T,D]
-            # relayout copies hit HBM.  (An earlier head-batched variant,
-            # flash_attention_qkv, lost to in-VMEM swapaxes — this one does
-            # one head per grid step with no in-kernel transposes.)
-            if self._int8(b * n):
-                # int8 MXU data matmuls (QK^T / P@V quantized in VMEM;
-                # serving-only, VDN_FLASH_INT8 gates the mode)
-                from vdn.ops.pallas.flash_attention import (
-                    flash_attention_int8_fused_qkv)
-                out = flash_attention_int8_fused_qkv(qkv)
-            else:
-                from vdn.ops.pallas.flash_attention import (
-                    flash_attention_fused_qkv)
-                out = flash_attention_fused_qkv(qkv)
-        else:
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-            out = dot_product_attention(q, k, v, use_flash=False)
+        out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
         out = out.reshape(b, n, c)
-        proj = Linear(c, param_dtype=self.param_dtype, name="proj")
-        if self._int8(b * n):
-            from vdn.ops.pallas.int8 import (int8_linear,
-                                             int8_proj_residual)
-            wp, bp = proj(out, params_only=True)
-            if residual is not None:
-                return int8_proj_residual(out, residual, wp, bp, gamma)
-            return int8_linear(out, wp, bp)
-        assert residual is None
-        return proj(out)
-
-    def _int8(self, rows: int) -> bool:
-        if self.quantize != "int8":
-            return False
-        from vdn.ops.pallas.int8 import int8_serving_enabled
-        return int8_serving_enabled(rows)
+        return Linear(c, param_dtype=self.param_dtype, name="proj")(out)
 
 
 class Block(nn.Module):
@@ -201,77 +110,25 @@ class Block(nn.Module):
     mlp_ratio: float = 4.0
     ffn: str = "mlp"
     param_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
-    quantize: Optional[str] = None  # "int8": W8A8-dynamic weight matmuls
-    save_qkv: bool = False  # see Attention.save_qkv
 
     @nn.compact
     def __call__(self, x):
-        from vdn.ops.pallas.mlp import fused_ln_mlp_residual, \
-            fused_mlp_enabled
-
         c = x.shape[-1]
-        rows = x.shape[0] * x.shape[1]
-        int8_path = False
-        if self.quantize == "int8":
-            from vdn.ops.pallas.int8 import int8_serving_enabled
-            int8_path = int8_serving_enabled(rows)
-        norm1 = LayerNorm(param_dtype=self.param_dtype, name="norm1")
-        ls1 = LayerScale(c, self.param_dtype, name="ls1")
-        attn = Attention(self.num_heads, self.param_dtype, self.use_flash,
-                         self.quantize, self.save_qkv, name="attn")
-        if int8_path:
-            # LN1 rides inside the int8 qkv kernel; LayerScale + the
-            # block residual ride the out-projection kernel epilogue
-            ln_s, ln_b = norm1(x, params_only=True)
-            x = checkpoint_name(
-                attn(x, ln=(ln_s, ln_b), residual=x,
-                     gamma=ls1(x, params_only=True)), "attn_res")
-        else:
-            y = attn(norm1(x))
-            # named so REMAT_POLICY saves the midpoint: the fused-MLP
-            # VJP's residual is exactly this tensor, so with it saved
-            # the MLP forward kernel is dead code in the remat recompute
-            # (identity outside jax.checkpoint)
-            x = checkpoint_name(x + ls1(y), "attn_res")
-        norm2 = LayerNorm(param_dtype=self.param_dtype, name="norm2")
-        ls2 = LayerScale(c, self.param_dtype, name="ls2")
+        y = Attention(self.num_heads, self.param_dtype, name="attn")(
+            LayerNorm(param_dtype=self.param_dtype, name="norm1")(x))
+        # named for REMAT_POLICY (identity outside jax.checkpoint)
+        x = checkpoint_name(x + LayerScale(c, self.param_dtype,
+                                           name="ls1")(y), "attn_res")
+        y = LayerNorm(param_dtype=self.param_dtype, name="norm2")(x)
         if self.ffn == "mlp":
-            mlp = Mlp(int(c * self.mlp_ratio), c,
-                      param_dtype=self.param_dtype, name="mlp")
-            if int8_path:
-                from vdn.ops.pallas.int8 import fused_ln_mlp_residual_int8
-                ln_s, ln_b = norm2(x, params_only=True)
-                (w1, b1), (w2, b2) = mlp(x, params_only=True)
-                gamma = ls2(x, params_only=True)
-                return fused_ln_mlp_residual_int8(
-                    x, ln_s, ln_b, w1, b1, w2, b2, gamma, 1e-6)
-            if fused_mlp_enabled(rows):
-                # one Pallas pass for LN2 -> fc1 -> GELU -> fc2 -> ls2 ->
-                # residual: under plain XLA the fc2 matmul fusion re-evals
-                # the exact-GELU producer per output tile (see
-                # vdn/ops/pallas/mlp.py)
-                ln_s, ln_b = norm2(x, params_only=True)
-                (w1, b1), (w2, b2) = mlp(x, params_only=True)
-                gamma = ls2(x, params_only=True)
-                return fused_ln_mlp_residual(x, ln_s, ln_b, w1, b1, w2, b2,
-                                             gamma, 1e-6)
-            y = mlp(norm2(x))
+            y = Mlp(int(c * self.mlp_ratio), c,
+                    param_dtype=self.param_dtype, name="mlp")(y)
         else:  # swiglufused: hidden = multiple-of-8 round of 2/3 * 4d
             hidden = int(c * self.mlp_ratio) * 2 // 3
             hidden = (hidden + 7) // 8 * 8
-            ffn = SwiGLUFFN(hidden, c, param_dtype=self.param_dtype,
-                            name="mlp")
-            if int8_path:
-                from vdn.ops.pallas.int8 import \
-                    fused_ln_swiglu_residual_int8
-                ln_s, ln_b = norm2(x, params_only=True)
-                (w12, b12), (w3, b3) = ffn(x, params_only=True)
-                gamma = ls2(x, params_only=True)
-                return fused_ln_swiglu_residual_int8(
-                    x, ln_s, ln_b, w12, b12, w3, b3, gamma, 1e-6)
-            y = ffn(norm2(x))
-        return x + ls2(y)
+            y = SwiGLUFFN(hidden, c, param_dtype=self.param_dtype,
+                          name="mlp")(y)
+        return x + LayerScale(c, self.param_dtype, name="ls2")(y)
 
 
 class DinoVisionTransformer(nn.Module):
@@ -284,39 +141,26 @@ class DinoVisionTransformer(nn.Module):
     img_size: int = 518
     interpolate_offset: float = 0.1
     param_dtype: Dtype = jnp.float32
-    use_flash: Optional[bool] = None
     remat: bool = False
-    # "int8": serving-only W8A8-dynamic encoder matmuls (vdn/ops/pallas/
-    # int8.py).  Inference paths only — the int8 kernels define no VJP.
-    quantize: Optional[str] = None
 
     def setup(self):
         grid = self.img_size // self.patch_size
         self.num_pos_patches = grid * grid
         self.patch_embed = PatchEmbed(self.embed_dim, self.patch_size,
                                       self.param_dtype)
-        self.cls_token = self.param("cls_token", nn.initializers.zeros,
+        self.cls_token = self.param("cls_token", jax.nn.initializers.zeros,
                                     (1, 1, self.embed_dim), self.param_dtype)
         self.pos_embed = self.param(
-            "pos_embed", nn.initializers.normal(0.02),
+            "pos_embed", jax.nn.initializers.normal(0.02),
             (1, self.num_pos_patches + 1, self.embed_dim), self.param_dtype)
         # kept for checkpoint-key parity with the reference (masking unused)
-        self.mask_token = self.param("mask_token", nn.initializers.zeros,
+        self.mask_token = self.param("mask_token", jax.nn.initializers.zeros,
                                      (1, self.embed_dim), self.param_dtype)
-        block_cls = Block
-        n_save_qkv = 0
-        if self.remat:
-            # VDN_REMAT_SAVE_QKV_LAYERS > 0 saves the fused qkv buffer
-            # on the first K blocks — a LOST A/B on this rig (see the
-            # note at REMAT_POLICY_SAVE_QKV), kept for HBM-richer rigs
-            import os
-            n_save_qkv = int(os.environ.get("VDN_REMAT_SAVE_QKV_LAYERS",
-                                            "0"))
-            block_cls = nn.remat(Block, policy=remat_policy(n_save_qkv))
+        block_cls = nn.remat(Block, policy=REMAT_POLICY) if self.remat \
+            else Block
         self.blocks = [
             block_cls(self.num_heads, self.mlp_ratio, self.ffn,
-                      self.param_dtype, self.use_flash, self.quantize,
-                      i < n_save_qkv, name=f"blocks_{i}")
+                      self.param_dtype, name=f"blocks_{i}")
             for i in range(self.depth)
         ]
         self.norm = LayerNorm(param_dtype=self.param_dtype, name="norm")
@@ -375,13 +219,11 @@ class DinoVisionTransformer(nn.Module):
         return self.norm(tokens)
 
 
-def make_vit(encoder: str, param_dtype=jnp.float32, use_flash=None,
-             remat: bool = False, name: Optional[str] = None,
-             quantize: Optional[str] = None) -> DinoVisionTransformer:
+def make_vit(encoder: str, param_dtype=jnp.float32, remat: bool = False,
+             name: Optional[str] = None) -> DinoVisionTransformer:
     cfg = VIT_CONFIGS[encoder]
     kw = {} if name is None else {"name": name}
     return DinoVisionTransformer(
         embed_dim=cfg["embed_dim"], depth=cfg["depth"],
         num_heads=cfg["num_heads"], ffn=cfg["ffn"],
-        param_dtype=param_dtype, use_flash=use_flash, remat=remat,
-        quantize=quantize, **kw)
+        param_dtype=param_dtype, remat=remat, **kw)

@@ -1,90 +1,71 @@
-"""Multi-head attention ops.
+"""Multi-head attention over [B, T, H, D] tensors.
 
-One entry point, two backends:
-- a plain XLA einsum path (always correct; XLA fuses it well on TPU for the
-  short-sequence cases: temporal attention is f<=32, memory attention ~8k kv)
-- a Pallas flash-attention path for the long-sequence ViT encoder case
-  (1370+ tokens x 16+ heads), enabled on TPU via ``use_flash``.
+One entry point, ``dot_product_attention``, and one place that picks its
+implementation, ``choose_implementation``:
 
-Softmax always runs in fp32 (the reference's ``upcast_softmax``/autocast
-behavior — reference motion_module/attention.py:198-204).
+- ``"cudnn"``: cuDNN's fused attention through
+  ``jax.nn.dot_product_attention``.  The [B, H, Tq, Tk] logits never reach
+  device memory (the memory-efficient attention the reference ran in its
+  ViT and temporal blocks).
+- ``"xla"``: einsum, float32 softmax, einsum, left to XLA.
+
+Both keep the logits and the softmax in float32 (the reference's
+``upcast_softmax``, motion_module/attention.py:198-204).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 
-__all__ = ["dot_product_attention"]
+__all__ = ["dot_product_attention", "choose_implementation"]
 
-_FLASH_MIN_SEQ = 256
+# Measured on an H100 (chip_smoke.py phase 1 times both implementations
+# at every call site; PERF.md): at 32 keys, the temporal attention, XLA's
+# forward+backward is faster; at 1370 and more keys, the ViT, cuDNN is
+# about 5x faster.
+CUDNN_MIN_KEYS = 256
 
 
-def _xla_attention(q, k, v, scale, bias=None):
-    dtype = q.dtype
-    logits = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                        preferred_element_type=jnp.float32) * scale
-    if bias is not None:
-        logits = logits + bias.astype(jnp.float32)
-    probs = jax.nn.softmax(logits, axis=-1).astype(dtype)
-    return jnp.einsum("bhqk,bkhd->bqhd", probs, v)
+def choose_implementation(platform: str, dtype, head_dim: int, tq: int,
+                          tk: int, masked: bool = False) -> str:
+    """``"cudnn"`` or ``"xla"`` for one attention call.
+
+    cuDNN's fused kernel takes fp16/bf16 with a head dim that is a multiple
+    of 8 and at most 256 on Hopper, and its masked backward needs even
+    sequence lengths."""
+    if platform != "gpu" or jnp.dtype(dtype) not in (jnp.bfloat16,
+                                                     jnp.float16):
+        return "xla"
+    if head_dim % 8 or head_dim > 256:
+        return "xla"
+    if masked and (tq % 2 or tk % 2):
+        return "xla"
+    return "cudnn" if tk >= CUDNN_MIN_KEYS else "xla"
 
 
 def dot_product_attention(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
                           scale: Optional[float] = None,
-                          bias: Optional[jnp.ndarray] = None,
-                          use_flash: Optional[bool] = None) -> jnp.ndarray:
-    """Attention over [B, T, H, D] tensors (q: Tq, k/v: Tk).
+                          mask: Optional[jnp.ndarray] = None,
+                          implementation: Optional[str] = None
+                          ) -> jnp.ndarray:
+    """Attention of q [B, Tq, H, D] over k/v [B, Tk, H, D].
 
     Args:
       scale: logit scale; defaults to 1/sqrt(D) like the reference.
-      bias: optional additive [B|1, H|1, Tq, Tk] logits bias.
-      use_flash: force the Pallas path on/off; default: auto (TPU & long seq).
+      mask: optional boolean [B|1, H|1, Tq|1, Tk]; False drops a key.
+      implementation: ``"cudnn"`` or ``"xla"``; by default
+        ``choose_implementation`` decides from the platform and shapes.
     """
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if use_flash is None:
-        use_flash = flash_enabled(q.shape[1], k.shape[1], bias)
-    if use_flash:
-        if bias is not None:
-            # column-bias flavor (memory-bank slot masks): bias
-            # broadcastable to [1, 1, 1, Tk].  A general [B,H,Tq,Tk]
-            # bias passed with use_flash=True falls back to XLA rather
-            # than dying in the kernel's reshape.
-            if bias.size != k.shape[1]:
-                return _xla_attention(q, k, v, scale, bias)
-            from vdn.ops.pallas.flash_attention import \
-                flash_attention_colbias
-            return flash_attention_colbias(q, k, v,
-                                           bias.reshape(-1), scale)
-        from vdn.ops.pallas.flash_attention import flash_attention
-        return flash_attention(q, k, v, scale)
-    return _xla_attention(q, k, v, scale, bias)
-
-
-def flash_enabled(tq: int, tk: int, bias=None) -> bool:
-    """Auto policy: the full-K Pallas kernel wins at ViT shapes on TPU —
-    slope-timed honestly: 5.2 ms vs 12.4 ms per vitl 32-frame-window
-    layer (2.4x; tools/bench_attention.py), and end-to-end the XLA path
-    also pays the fp32 [B,H,T,T] logits in HBM (3.8 GB/window, the
-    round-1 OOM source).  Short sequences (temporal attention, f<=32)
-    stay on the XLA path.  Biased attention qualifies only for
-    per-COLUMN biases (shape broadcastable to [1,1,1,Tk] — the
-    memory-bank slot masks), which the colbias kernel flavor handles;
-    general [.., Tq, Tk] biases stay XLA."""
-    col_bias_ok = bias is None or (
-        bias.ndim == 4 and bias.shape[0] == 1 and bias.shape[1] == 1
-        and bias.shape[2] == 1 and bias.shape[3] == tk)
-    return (col_bias_ok and tq >= _FLASH_MIN_SEQ and tk >= _FLASH_MIN_SEQ
-            and _on_tpu())
-
-
-@functools.lru_cache(maxsize=1)
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+    tq, tk = q.shape[1], k.shape[1]
+    if implementation is None:
+        implementation = choose_implementation(
+            jax.default_backend(), q.dtype, q.shape[-1], tq, tk,
+            mask is not None)
+    if mask is not None and implementation == "cudnn":
+        # cuDNN takes the mask as a full-length [.., Tq, Tk] bias
+        mask = jnp.broadcast_to(mask, mask.shape[:2] + (tq, tk))
+    return jax.nn.dot_product_attention(q, k, v, mask=mask, scale=scale,
+                                        implementation=implementation)

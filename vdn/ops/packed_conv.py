@@ -2,27 +2,32 @@
 
 The DPT output island (reference dpt_temporal.py:108-110,
 depth_anything_v2/dpt.py:140-151) ends in `conv3x3(C->32) -> ReLU ->
-conv1x1(32->1) -> act` at full output resolution.  On TPU an N=32 conv
-uses 32 of the MXU's 128 lanes (25% peak) and materializes an fp32
-[N, H, W, 32] intermediate (1.37 GB/window at vitl-518) — together
-~20 ms/window (trace 2026-08-17: fusion.11 + maximum_bitcast_fusion).
+conv1x1(32->1) -> act` at full output resolution.  An N=32 conv fills a
+quarter of a 128-wide output tile and materializes an fp32
+[N, H, W, 32] intermediate.
 
 This module packs P = 128//N_out horizontally adjacent output pixels
-into one 128-lane group by widening the kernel to [3, 3+P-1, C, 128]
-with P shifted copies and striding the conv by P: every lane of the MXU
-output is useful, the conv runs at full rate, and the 1x1 collapse
-becomes a tiny block-diagonal matmul (kron(I_P, w2)) applied directly
-to the packed layout — no relayout until the final [*, G, P] -> [*, W]
-ungroup of the 1-channel result.
+into one 128-wide channel group by widening the kernel to
+[3, 3+P-1, C, 128] with P shifted copies and striding the conv by P,
+and the 1x1 collapse becomes a tiny block-diagonal matmul
+(kron(I_P, w2)) applied directly to the packed layout — no relayout
+until the final [*, G, P] -> [*, W] ungroup of the 1-channel result.
+The layout was chosen for a 128-wide matrix unit; whether it pays on
+the GPU against the plain conv pair is an open A/B (ROADMAP speed
+queue).
 
 The packed conv computes the same sums as the unpacked one (the pad
 columns contribute exact zeros); only fp32 accumulation order differs.
+Precision: the 3x3 conv takes compute-dtype operands with an fp32
+accumulator (bf16 in serving; fp32 compute runs at the default
+precision, TF32 on the GPU); the fp32 collapse runs at HIGHEST.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
 
 from vdn.nn.layers import _conv_nhwc_accum
@@ -63,7 +68,8 @@ def packed_island_head(x, w1, b1, w2, b2,
     y = jnp.maximum(y, 0.0)
     # block-diagonal collapse in the packed layout: [P*O, P*OO]
     w2b = jnp.kron(jnp.eye(p, dtype=accum_dtype), w2.astype(accum_dtype))
-    z = jnp.einsum("nhgk,ko->nhgo", y, w2b)
+    z = jnp.einsum("nhgk,ko->nhgo", y, w2b,
+                   precision=jax.lax.Precision.HIGHEST)
     if b2 is not None:
         z = z + jnp.tile(b2, p).astype(z.dtype)
     z = z.reshape(n, h, groups * p, oo)[:, :, :w, :]

@@ -1,4 +1,4 @@
-"""Torch-exact 2-D interpolation for NHWC tensors, TPU-friendly.
+"""Torch-exact 2-D interpolation for NHWC tensors.
 
 The reference leans on ``torch.nn.functional.interpolate`` in four places that
 are all on the accuracy-critical path (see reference ``depth_anything_v2/dpt.py:147``,
@@ -13,8 +13,9 @@ are all on the accuracy-critical path (see reference ``depth_anything_v2/dpt.py:
 Catmull-Rom cubic A=-0.5), so we build the interpolation as a static-shape
 gather + weighted sum per axis: for each output index we precompute (numpy,
 at trace time) the source tap indices and weights exactly the way torch does,
-then apply them with ``jnp.take``.  Cost is O(taps x elements) and lowers to
-cheap vectorized gathers on TPU; weights fold into the surrounding fusion.
+then apply them with ``jnp.take``.  Cost is O(taps x elements); the gather
+and the weighted sum are parallel kernels that XLA fuses with their
+neighbours.
 """
 
 from __future__ import annotations
@@ -22,26 +23,9 @@ from __future__ import annotations
 import functools
 from typing import Optional, Sequence, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-class _HashableArray:
-    """Hashable trace-time constant wrapper (custom_vjp nondiff args must
-    be hashable; interpolation plans are small numpy arrays)."""
-    __slots__ = ("arr", "_h")
-
-    def __init__(self, arr):
-        self.arr = np.asarray(arr)
-        self._h = hash((self.arr.shape, self.arr.tobytes()))
-
-    def __hash__(self):
-        return self._h
-
-    def __eq__(self, other):
-        return (isinstance(other, _HashableArray)
-                and np.array_equal(self.arr, other.arr))
 
 __all__ = ["resize2d", "interpolate_like_torch"]
 
@@ -125,80 +109,6 @@ def _plan_axis(out_size: int, in_size: int, method: str, align_corners: bool,
     return idx.astype(np.int32), w.astype(np.float32)
 
 
-# test hook: force the Pallas path regardless of backend (interpret mode)
-_FORCE_PALLAS = False
-
-
-def _transpose_plan(idx: np.ndarray, w: np.ndarray, in_size: int
-                    ) -> Tuple[np.ndarray, np.ndarray]:
-    """Transpose an interpolation plan: per-INPUT-row output taps/weights
-    (the VJP of a banded interpolation matmul is another banded matmul)."""
-    out_size, taps = idx.shape
-    buckets = [[] for _ in range(in_size)]
-    for o in range(out_size):
-        for t in range(taps):
-            buckets[int(idx[o, t])].append((o, float(w[o, t])))
-    taps_t = max(1, max(len(b) for b in buckets))
-    idx_t = np.zeros((in_size, taps_t), np.int32)
-    w_t = np.zeros((in_size, taps_t), np.float32)
-    for i, b in enumerate(buckets):
-        for j, (o, wt) in enumerate(b):
-            idx_t[i, j] = o
-            w_t[i, j] += wt
-    return idx_t, w_t
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 3))
-def _pallas_resize(x, axis: int, out_size: int, plan):
-    from vdn.ops.pallas import resize as presize
-    idx, w = plan[0].arr, plan[1].arr
-    lead = x.shape[:axis]
-    tail = x.shape[axis + 1:]
-    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    m = int(np.prod(tail, dtype=np.int64)) if tail else 1
-    y = presize.resize_mid_axis(x.reshape(n, x.shape[axis], m), idx, w,
-                                out_size)
-    return y.reshape(*lead, out_size, *tail)
-
-
-def _pallas_resize_fwd(x, axis, out_size, plan):
-    return _pallas_resize(x, axis, out_size, plan), x.shape[axis]
-
-
-def _pallas_resize_bwd(axis, out_size, plan, in_size, g):
-    idx_t, w_t = _transpose_plan(plan[0].arr, plan[1].arr, in_size)
-    return (_pallas_resize(g, axis, in_size,
-                           (_HashableArray(idx_t), _HashableArray(w_t))),)
-
-
-_pallas_resize.defvjp(_pallas_resize_fwd, _pallas_resize_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2))
-def _pallas_resize_h(x, out_size: int, plan):
-    """H-axis (ndim-3) resize via the outer-row tap-blend kernel — keeps
-    NHWC layout through both separable passes (no inter-pass relayout)."""
-    from vdn.ops.pallas import resize as presize
-    idx, w = plan[0].arr, plan[1].arr
-    lead = x.shape[:-3]
-    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    y = presize.resize_rows(x.reshape(n, *x.shape[-3:]), idx, w, out_size)
-    return y.reshape(*lead, out_size, *x.shape[-2:])
-
-
-def _pallas_resize_h_fwd(x, out_size, plan):
-    return _pallas_resize_h(x, out_size, plan), x.shape[-3]
-
-
-def _pallas_resize_h_bwd(out_size, plan, in_size, g):
-    idx_t, w_t = _transpose_plan(plan[0].arr, plan[1].arr, in_size)
-    return (_pallas_resize_h(g, in_size,
-                             (_HashableArray(idx_t), _HashableArray(w_t))),)
-
-
-_pallas_resize_h.defvjp(_pallas_resize_h_fwd, _pallas_resize_h_bwd)
-
-
 def _apply_axis(x: jnp.ndarray, axis: int, out_size: int, method: str,
                 align_corners: bool, scale: Optional[float]) -> jnp.ndarray:
     in_size = x.shape[axis]
@@ -211,20 +121,6 @@ def _apply_axis(x: jnp.ndarray, axis: int, out_size: int, method: str,
             and np.allclose(np.where(np.arange(taps)[None] == hot[:, None], 0, w), 0.0)
             and np.array_equal(idx[np.arange(out_size), hot], np.arange(in_size))):
         return x
-    # TPU hot path: banded-matmul Pallas kernel (XLA lowers the take() below
-    # to a serialized while-loop of row updates — ~22% of the clip window).
-    import os
-    if os.environ.get("VDN_PALLAS_RESIZE", "1") != "0" and (
-            _FORCE_PALLAS or jax.default_backend() == "tpu"):
-        from vdn.ops.pallas import resize as presize
-        ax = axis if axis >= 0 else x.ndim + axis
-        if presize.supports_rows(x.shape, ax, idx, out_size, x.dtype):
-            return _pallas_resize_h(x, out_size,
-                                    (_HashableArray(idx), _HashableArray(w)))
-        if presize.supports(x.shape, ax, idx, x.dtype):
-            # idx/w are hashable plan constants (trace-time numpy)
-            return _pallas_resize(x, ax, out_size,
-                                  (_HashableArray(idx), _HashableArray(w)))
     gathered = jnp.take(x, jnp.asarray(idx.reshape(-1)), axis=axis)
     new_shape = x.shape[:axis] + (out_size, taps) + x.shape[axis + 1:]
     gathered = gathered.reshape(new_shape)

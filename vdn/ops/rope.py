@@ -1,4 +1,4 @@
-"""Rotary position embeddings, real-valued (Pallas/TPU friendly).
+"""Rotary position embeddings, real-valued (no complex dtypes).
 
 Two variants used by the reference, both reimplemented with sin/cos pairs
 instead of complex tensors:

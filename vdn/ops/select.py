@@ -1,16 +1,13 @@
-"""Exact order statistics without sorting (TPU-friendly radix select).
+"""Exact order statistics without sorting (radix select).
 
-XLA lowers ``jnp.sort`` on TPU to a bitonic network that costs tens of
-milliseconds at training sizes — the trimmed-loss sort alone was 12% of a
-v4 train step (profiles/train, 2026-08-17).  The k-th order statistic can
-instead be found EXACTLY in 32 counting passes over the bit-planes of the
-IEEE-754 representation (classic radix select): total-ordered unsigned
-keys are built by flipping the sign bit of non-negatives and all bits of
-negatives, then the k-th smallest key is recovered most-significant-bit
-first, counting how many candidates fall in the zero branch.
-
-Each pass is a compare+reduce the VPU streams at memory bandwidth, so the
-whole selection costs ~32 array reads (~1 ms where the sort cost 62 ms).
+The k-th order statistic is found EXACTLY in 32 counting passes over the
+bit-planes of the IEEE-754 representation (classic radix select):
+total-ordered unsigned keys are built by flipping the sign bit of
+non-negatives and all bits of negatives, then the k-th smallest key is
+recovered most-significant-bit first, counting how many candidates fall in
+the zero branch.  Each pass is a compare+reduce at memory bandwidth.  It
+replaced a sort that was slow on another accelerator; whether it beats
+``jnp.sort``/``top_k`` on the GPU is an open A/B (ROADMAP speed queue).
 
 Gradients: the selected VALUE is bit-derived (no autodiff path) —
 ``kth_smallest`` is stop-gradiented by construction; callers that need a

@@ -2,8 +2,9 @@
 
 The reference has no sequence scaling beyond a fixed 32-frame window
 (SURVEY §2.9/§5) — its temporal attention is `(b·h·w, f, c)` on one GPU.
-On TPU the frame axis shards across ICI: every stage of the video model is
-frame-independent *except* temporal attention, so the whole forward runs
+The frame axis shards across devices over NVLink: every stage of the video
+model is frame-independent *except* temporal attention, so the whole forward
+runs
 under shard_map with the clip sharded P(data, seq), and the temporal
 attention becomes a ring: each step computes a blockwise
 (flash-style running-softmax) attention against the local K/V shard, then
@@ -151,43 +152,23 @@ def ulysses_attention(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
     axis size."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    from vdn.ops.attention import _xla_attention
+    from vdn.ops.attention import dot_product_attention
 
     def swap_in(x):   # [N, T/p, H, D] -> [N/p, T, H, D]
         return jax.lax.all_to_all(x, axis_name, 0, 1, tiled=True)
 
     q, k, v = swap_in(q), swap_in(k), swap_in(v)
-    out = _xla_attention(q, k, v, scale)
+    out = dot_product_attention(q, k, v, scale)
     return jax.lax.all_to_all(out, axis_name, 1, 0, tiled=True)
 
 
-# Context-parallel attention flavor ("auto" | "ring" | "alltoall" |
-# "ring_pallas"; override via VDN_CP_MODE / set_cp_mode).
-#
-# "auto" picks per shape from the recorded single-chip step-kernel A/B
-# (tools/bench_ring.py, v5e, N=1369 H=8 D=128 bf16, 2026-08-20 — the
-# ring degenerates to p=1 there, so this measures the per-device step
-# compute, not ICI overlap):
-#
-#     T    ring_xla    ring_pallas    pallas/xla
-#     64    6.975 ms     8.727 ms       0.80x
-#    128   12.635 ms    11.269 ms       1.12x
-#    256   34.360 ms    21.956 ms       1.56x
-#
-# The XLA step (materialized [B,H,Tq,Tk] logits) wins below ~T=128 per
-# shard — the flagship 32-frame window's shards are far below that —
-# and the fused Pallas block kernel (logits stay in VMEM) wins and
-# keeps widening beyond it, so "auto" switches on the local K/V length
-# at 128.
-import os as _os
-
-_CP_MODE = _os.environ.get("VDN_CP_MODE", "auto")
-_PALLAS_MIN_T = 128
+_CP_MODE = "ring"
 
 
 def set_cp_mode(mode: str):
-    global _CP_MODE
-    assert mode in ("auto", "ring", "alltoall", "ring_pallas")
+    """Selects the context-parallel attention: ``"ring"`` (ppermute ring,
+    the default) or ``"alltoall"`` (Ulysses)."""
+    assert mode in ("ring", "alltoall")
     globals()["_CP_MODE"] = mode
 
 
@@ -196,10 +177,4 @@ def cp_attention(q, k, v, axis_name: str,
     """Dispatch to the configured context-parallel attention flavor."""
     if _CP_MODE == "alltoall":
         return ulysses_attention(q, k, v, axis_name, scale)
-    mode = _CP_MODE
-    if mode == "auto":
-        mode = "ring_pallas" if k.shape[1] >= _PALLAS_MIN_T else "ring"
-    if mode == "ring_pallas":
-        from vdn.ops.pallas.ring_attention import ring_attention_pallas
-        return ring_attention_pallas(q, k, v, axis_name, scale)
     return ring_attention(q, k, v, axis_name, scale)

@@ -2,9 +2,10 @@
 
 The reference's entire distributed story is NCCL DDP
 (reference metric_depth/util/dist_helper.py:8-41, metric_depth/train.py:93-96).
-The TPU-native equivalent is a named mesh + sharding annotations; XLA inserts
-the collectives (gradient psum over 'data', temporal-attention collectives
-over 'seq') and routes them over ICI.
+Here it is a named mesh + sharding annotations; XLA inserts the collectives
+(gradient psum over 'data', temporal-attention collectives over 'seq') and
+hands them to NCCL over NVLink.  NVLink joins the cards all to all, so the
+mesh is a plain reshape of the device list and follows the algorithm alone.
 
 Axes:
   data  — batch (DP; replaces DDP/all-reduce)

@@ -3,7 +3,7 @@
 The reference has no TP (SURVEY §2.9); vdn shards the transformer's wide
 matmuls over the 'model' mesh axis for the vitg (1.3B) encoder — the
 pjit/GSPMD style: annotate parameter shardings, let XLA insert the
-collectives over ICI.
+collectives over NVLink.
 
 Rules (classic Megatron split, applied by parameter path):
   attn qkv kernel   [C, 3C]   -> shard output dim   P(None, 'model')

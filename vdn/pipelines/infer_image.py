@@ -29,13 +29,6 @@ class DepthAnythingV2Pipeline:
         def fwd_nomem(params, x):
             return model.apply(params, x, None)
 
-        def fwd_nomem_calib(params, x):
-            """First frame doubling as the PTQ calibration pass for
-            quantize="int8_static" (bit-identical float forward +
-            activation absmax recording — the same first-window protocol
-            as vdn.pipelines.infer_video/stream)."""
-            return model.apply(params, x, None, mutable=["quant_stats"])
-
         def fwd_mem(params, x, state):
             return model.apply(params, x, state)
 
@@ -45,11 +38,8 @@ class DepthAnythingV2Pipeline:
             return update_memory_state(state, *entry)
 
         self._fwd_nomem = jax.jit(fwd_nomem)
-        self._fwd_nomem_calib = jax.jit(fwd_nomem_calib)
         self._fwd_mem = jax.jit(fwd_mem)
         self._encode_and_update = jax.jit(encode_and_update)
-        self._static_quant = getattr(model, "quantize",
-                                     None) == "int8_static"
 
     def clear_memory(self):
         self.state = None
@@ -58,12 +48,7 @@ class DepthAnythingV2Pipeline:
                     ) -> np.ndarray:
         x, (h, w) = image2tensor_bgr(raw_bgr, input_size)
         if self.state is None:
-            if self._static_quant:
-                (depth, mem_feat), stats = self._fwd_nomem_calib(
-                    self.params, x)
-                self.params = {**self.params, **stats}
-            else:
-                depth, mem_feat = self._fwd_nomem(self.params, x)
+            depth, mem_feat = self._fwd_nomem(self.params, x)
             self.state = init_memory_state(
                 x.shape[0], mem_feat.shape[1], mem_feat.shape[2],
                 self.capacity)

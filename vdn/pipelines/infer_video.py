@@ -6,8 +6,8 @@ video_depth_anything/video_depth.py:67-156), unchanged constants:
 previous window's KEYFRAMES, then per-window least-squares scale/shift
 alignment against keyframe references plus an 8-frame cross-fade.
 
-Device work (the jitted clip forward) sees a fixed [1, 32, h, w, 3] shape;
-everything else is numpy on the host.
+Device work (frame preprocessing and the jitted clip forward) sees a fixed
+[1, 32, h, w, 3] shape; the stitching is numpy on the host.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 from vdn.ops.resize import resize2d
 from vdn.ops.scale_shift import interpolate_frames_np, scale_and_shift_np
 from vdn.pipelines.transform import (adjust_input_size_for_ratio,
-                                     preprocess_frame)
+                                     preprocess_frames)
 
 # infer settings, do not change (reference video_depth.py:29-33)
 INFER_LEN = 32
@@ -59,24 +59,6 @@ def make_cached_window_fns(model):
     return full, cached
 
 
-def make_calibrating_window_fn(model):
-    """Jitted PTQ-calibration window for ``quantize="int8_static"``
-    models: runs the window in float while recording every quantized
-    conv's activation absmax into the ``quant_stats`` collection
-    (vdn.nn.layers.Conv2d).  Returns ``(depth, features, updated_stats)``
-    — the depth/features are bit-identical to the float forward; merge
-    the stats into the params (``{**params, **stats}``) before the
-    steady-state int8 windows."""
-
-    @jax.jit
-    def f(p, x):
-        (depth, feats), muts = model.apply(
-            p, x, method=model.forward_window, mutable=["quant_stats"])
-        return depth, feats, muts
-
-    return f
-
-
 def infer_video_depth(model, params, frames: np.ndarray, target_fps: float,
                       input_size: int = 518,
                       forward_fn: Optional[object] = None,
@@ -113,29 +95,24 @@ def infer_video_depth(model, params, frames: np.ndarray, target_fps: float,
     for frame_id in range(0, n_frames, frame_step):
         if cache_encoder:
             if prev_feats is None:
-                cur = np.stack(
-                    [preprocess_frame(frame_list[frame_id + i], input_size)
-                     for i in range(INFER_LEN)], axis=0)[None]
-                if getattr(model, "quantize", None) == "int8_static":
-                    # the first window doubles as the PTQ calibration
-                    # pass (float forward + activation-stat recording)
-                    calib_fn = make_calibrating_window_fn(model)
-                    depth, prev_feats, stats = calib_fn(params, cur)
-                    params = {**params, **stats}
-                else:
-                    depth, prev_feats = full_fn(params, cur)
+                cur = preprocess_frames(
+                    np.stack(frame_list[frame_id:frame_id + INFER_LEN]),
+                    input_size)[None]
+                depth, prev_feats = full_fn(params, cur)
             else:
-                x_new = np.stack(
-                    [preprocess_frame(frame_list[frame_id + i], input_size)
-                     for i in range(OVERLAP, INFER_LEN)], axis=0)[None]
+                x_new = preprocess_frames(
+                    np.stack(frame_list[frame_id + OVERLAP:
+                                        frame_id + INFER_LEN]),
+                    input_size)[None]
                 depth, prev_feats = cached_fn(params, x_new, prev_feats)
             depth = np.asarray(depth)
         else:
-            cur = np.stack(
-                [preprocess_frame(frame_list[frame_id + i], input_size)
-                 for i in range(INFER_LEN)], axis=0)[None]
+            cur = preprocess_frames(
+                np.stack(frame_list[frame_id:frame_id + INFER_LEN]),
+                input_size)[None]
             if pre_input is not None:
-                cur[:, :OVERLAP] = pre_input[:, KEYFRAMES]
+                cur = cur.at[:, :OVERLAP].set(
+                    pre_input[:, np.asarray(KEYFRAMES)])
             depth = np.asarray(forward_fn(params, cur))  # [1, T, h, w]
             pre_input = cur
         depth = np.asarray(resize2d(depth[0][..., None],

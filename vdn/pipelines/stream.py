@@ -4,14 +4,15 @@ Re-design of the reference streaming path
 (reference video_depth_anything/video_depth_stream.py:76-160): the python
 list of per-frame KV-cache tensors becomes a set of fixed-capacity device
 ring buffers, so every step is a single jitted call with static shapes —
-no host<->device cache traffic, HBM use is constant in clip length.
+no host<->device cache traffic, device memory use is constant in clip
+length.
 
 Policy replicated exactly (reference :57-59, :133-158):
 - window = entries [0:2] + [-29:] of the logical list (31 entries; frame 0
   is a permanent anchor)
 - after frame id >= 11, the second-oldest entry is evicted (gap=41)
 Host keeps only the logical-slot indirection (a list of ints); cache tensors
-never leave HBM.
+never leave the device.
 """
 
 from __future__ import annotations
@@ -24,17 +25,13 @@ import numpy as np
 
 from vdn.ops.resize import resize2d
 from vdn.pipelines.transform import (adjust_input_size_for_ratio,
-                                     preprocess_frame)
+                                     preprocess_frames)
 
 INFER_LEN = 32
 OVERLAP = 10
 INTERP_LEN = 8
 GAP = (INFER_LEN - OVERLAP) * 2 - 1 - (OVERLAP - INTERP_LEN)  # == 41
-# max logical entries ever alive (43).  (A fused Pallas chunk-window
-# kernel — and its sublane-padded CAPACITY=48 variant — was A/B'd in
-# round 4 and LOST to the XLA algebra (MXU-latency-bound tiny dots);
-# the round-5 K/V-ring redesign then removed its input contract, so the
-# kernel was retired — analysis in ROADMAP.md.)
+# max logical entries ever alive (43)
 CAPACITY = GAP + 2
 
 
@@ -69,14 +66,8 @@ class VideoDepthStreamPipeline:
         self._pending: List[np.ndarray] = []
 
         def gather_window(buf, onehot):
-            """buf [N, CAP, C] x onehot [31, CAP] -> [N, 31, C].  One-hot
-            row mixing instead of buf[:, sel]: XLA lowers both the take and
-            the batched einsum to serialized while-loops (~27 ms/frame); the
-            Pallas kernel is a bandwidth-bound banded matmul (~1 ms).  Exact:
-            each output row has a single 1.0 term."""
-            if jax.default_backend() == "tpu":
-                from vdn.ops.pallas.resize import select_rows
-                return select_rows(buf, onehot)
+            """buf [N, CAP, C] x onehot [31, CAP] -> [N, 31, C] by one-hot
+            row mixing (exact: each output row has a single 1.0 term)."""
             return jnp.einsum("sw,nwc->nsc", onehot.astype(buf.dtype), buf)
 
         def first(params, x, out_hw):
@@ -96,13 +87,7 @@ class VideoDepthStreamPipeline:
             (slots [k]); the encoder AND the full-resolution head tail
             (DPTHeadTemporal.decode_pre/decode_post) batch over the whole
             chunk — they have no cross-frame dependency, so the math is
-            identical to per-frame decode (parity-tested).
-
-            (A read-only-buffer variant — gathering in-chunk entries from
-            a side stack so the rings could stay scan constants — was
-            trace-tested and LOST ~2.7 ms/frame: the extra gather per
-            cache outweighed the carry copies, which turned out to be the
-            attention concat, since removed in motion.py.)"""
+            identical to per-frame decode (parity-tested)."""
             k = x.shape[1]
             ph, pw = x.shape[2] // 14, x.shape[3] // 14
 
@@ -175,23 +160,7 @@ class VideoDepthStreamPipeline:
                 return depths, tuple(bufs)
             return model.apply(params, x, method=run)
 
-        def first_calib(params, x, out_hw):
-            """First-frame dispatch doubling as the PTQ calibration pass
-            for quantize="int8_static" models (float forward + activation
-            stat recording; see vdn.nn.layers.Conv2d)."""
-            def run(m, x):
-                f = m.forward_features(x)
-                depth, entries = m.forward_depth(f, x.shape)
-                depth = resize2d(depth[..., None], out_hw, "bilinear",
-                                 align_corners=True)[..., 0]
-                return depth, entries
-            return model.apply(params, x, method=run,
-                               mutable=["quant_stats"])
-
         self._first = jax.jit(first, static_argnums=(2,))
-        self._first_calib = jax.jit(first_calib, static_argnums=(2,))
-        self._static_quant = getattr(model, "quantize",
-                                     None) == "int8_static"
         self._step_k = jax.jit(step_k, donate_argnums=(2,),
                                static_argnums=(5,))
         self._step_batched = jax.jit(step_batched, donate_argnums=(2,),
@@ -233,22 +202,16 @@ class VideoDepthStreamPipeline:
             self.frame_hw = (h, w)
             self.input_size = adjust_input_size_for_ratio(
                 h, w, self.default_input_size)
-        xs = []
         for f in frames:
             assert f.shape[:2] == self.frame_hw
-            xs.append(preprocess_frame(f, self.input_size))
+        xs = preprocess_frames(np.stack(frames), self.input_size)
 
         out: List[np.ndarray] = []
         i = 0
         if self.buffers is None:
             self.id += 1
-            if self._static_quant:
-                (depth, entries), stats = self._first_calib(
-                    self.params, xs[0][None, None], self.frame_hw)
-                self.params = {**self.params, **stats}
-            else:
-                depth, entries = self._first(self.params, xs[0][None, None],
-                                             self.frame_hw)
+            depth, entries = self._first(self.params, xs[0][None, None],
+                                         self.frame_hw)
             # replicate the first frame's cache across the initial window
             # (reference video_depth_stream.py:117)
             self.buffers = tuple(
@@ -272,7 +235,7 @@ class VideoDepthStreamPipeline:
                                for s in sel] + [CAPACITY + j])
                 writer[slot] = j
                 slots_w.append(slot)
-            x = np.stack(xs[i:])[None]  # [1, k, h, w, 3]
+            x = xs[i:][None]  # [1, k, h, w, 3]
             if self._use_batched and len(slots_w) > 1:
                 depths, self.buffers = self._step_batched(
                     self.params, x, self.buffers,

@@ -1,10 +1,12 @@
-"""Host-side preprocessing (cv2/numpy), matching the reference transforms.
+"""Preprocessing, matching the reference transforms.
 
 The reference preprocesses on CPU with cv2 (reference
-depth_anything_v2/util/transform.py:5-157); resize math must match
-bit-for-bit or depth-metric parity drifts, so we keep cv2 on the host here
-too (a Pallas-fused device preprocess is a later optimization with its own
-tolerance story).
+depth_anything_v2/util/transform.py:5-157); resize math must match or
+depth-metric parity drifts.  Here the resize is vdn.ops.resize's separable
+bicubic plan, which is cv2's INTER_CUBIC convention on float32 (A = -0.75,
+half-pixel centres, clamped taps; equal to cv2 to float32 rounding,
+tests/test_transform.py), run as one jitted op per frame stack on the
+default device, so a window's frames are resized where the model runs.
 
 Layout difference: vdn is NHWC, so PrepareForNet's HWC->CHW transpose
 disappears.
@@ -12,12 +14,17 @@ disappears.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Tuple
 
-import cv2
+import jax
+import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["compute_resize_hw", "preprocess_frame", "image2tensor_bgr",
+from vdn.ops.resize import resize2d
+
+__all__ = ["compute_resize_hw", "preprocess_frame", "preprocess_frames",
+           "image2tensor_bgr",
            "IMAGENET_MEAN", "IMAGENET_STD", "adjust_input_size_for_ratio"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -58,15 +65,25 @@ def adjust_input_size_for_ratio(height: int, width: int,
     return input_size
 
 
+@functools.partial(jax.jit, static_argnums=(1,))
+def _preprocess(frames, hw: Tuple[int, int]):
+    x = resize2d(frames.astype(jnp.float32) / 255.0, hw, "bicubic")
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def preprocess_frames(frames, input_size: int = 518) -> jax.Array:
+    """[T, H, W, 3] uint8/float RGB frames (0-255) -> normalized fp32
+    [T, h, w, 3] network input on the default device (bicubic resize to
+    the lower-bound size + ImageNet normalization)."""
+    frames = jnp.asarray(frames)
+    hw = compute_resize_hw(frames.shape[1], frames.shape[2], input_size)
+    return _preprocess(frames, hw)
+
+
 def preprocess_frame(frame_rgb: np.ndarray, input_size: int = 518
                      ) -> np.ndarray:
-    """uint8/float RGB HWC frame -> normalized fp32 [h, w, 3] network input
-    (resize INTER_CUBIC + ImageNet normalization)."""
-    img = frame_rgb.astype(np.float32) / 255.0
-    h, w = img.shape[:2]
-    new_h, new_w = compute_resize_hw(h, w, input_size)
-    img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_CUBIC)
-    return (img - IMAGENET_MEAN) / IMAGENET_STD
+    """One HWC RGB frame -> normalized fp32 [h, w, 3] (host array)."""
+    return np.asarray(preprocess_frames(frame_rgb[None], input_size)[0])
 
 
 def image2tensor_bgr(raw_bgr: np.ndarray, input_size: int = 518
@@ -74,5 +91,5 @@ def image2tensor_bgr(raw_bgr: np.ndarray, input_size: int = 518
     """BGR image (cv2.imread convention) -> ([1, h, w, 3], original (H, W))
     (reference depth_anything_v2.py:67-92)."""
     h, w = raw_bgr.shape[:2]
-    rgb = cv2.cvtColor(raw_bgr, cv2.COLOR_BGR2RGB)
+    rgb = raw_bgr[..., ::-1]
     return preprocess_frame(rgb, input_size)[None], (h, w)

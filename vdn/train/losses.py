@@ -28,7 +28,7 @@ def _trimmed_abs_sum(res: Array, mask: Array, trim: float) -> Array:
     (reference TrimmedMAELoss, loss.py:194-219). res/mask flattened.
 
     The cutoff is found by exact radix select (vdn.ops.select) rather
-    than a full sort — the sort was 12% of a v4 train step on TPU.  The
+    than a full sort (whether that pays on the GPU is open; ROADMAP).  The
     kept sum is identical (ties at the threshold all equal it), only the
     fp accumulation order differs."""
     from vdn.ops.select import kth_smallest
@@ -96,8 +96,8 @@ def normalize_prediction_robust(target: Array, mask: Array,
     if ms is None:
         from vdn.ops.select import differentiable_value, kth_smallest
         npix = flat.shape[1]
-        # torch lower median via radix select (sort was a per-row TPU
-        # bitonic sort); recovered differentiably like the sort gather
+        # torch lower median via radix select; recovered differentiably
+        # like the sort gather
         med = differentiable_value(
             flat, kth_smallest(flat, (npix - 1) // 2 + 1))
         m = jnp.where(valid, med, 0.0)
@@ -242,8 +242,8 @@ def ssim_cs_loss(prediction: Array, target: Array, mask: Array,
 
     win = _gaussian_window(win_size, sigma).astype(prediction.dtype)
     # separable gaussian as two VALID depthwise convs — jnp.convolve /
-    # apply_along_axis lowers to scalarized loops on TPU and would crater
-    # the step the moment ssim_loss_scale > 0
+    # apply_along_axis lowers to scalarized loops and would crater the
+    # step the moment ssim_loss_scale > 0
     kh = win.reshape(win_size, 1, 1, 1)
     kw = win.reshape(1, win_size, 1, 1)
 

@@ -4,7 +4,7 @@ Re-design of the reference DDP trainer (reference metric_depth/train.py:43-208,
 util/loss.py:5-16, util/metric.py:4-26, util/dist_helper.py:8-41):
 
 - NCCL DDP + SyncBatchNorm + dist.reduce become a 'data'-sharded jitted
-  step (XLA inserts the gradient psum over ICI) and host-side metric sums
+  step (XLA inserts the gradient psum over NVLink) and host-side metric sums
 - per-group LRs (encoder lr, everything else lr x 10) via optax
   multi_transform; poly decay (1 - iter/total)^0.9 stepped per iteration
 - random horizontal flip augmentation is done host-side in the data loop

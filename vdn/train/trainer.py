@@ -1,4 +1,4 @@
-"""Refinement trainer (v4 semantics), TPU-native.
+"""Refinement trainer (v4 semantics).
 
 Re-design of the reference canonical trainer
 (reference scripts/train_v4.py:443-649):
@@ -172,7 +172,7 @@ class RefineTrainer:
             # SPMD data parallelism, the reference's DDP
             # (scripts/train_v4.py:443-470): batch pinned to the mesh's
             # 'data' axis, params/opt replicated; XLA inserts the gradient
-            # all-reduce over ICI.
+            # all-reduce over NVLink.
             batch_s, rep = _dp_shardings(mesh)
             self._train_step = jax.jit(
                 self._train_step_impl, donate_argnums=(0,),
@@ -214,11 +214,10 @@ class RefineTrainer:
                                       masks)
         import os
         if os.environ.get("VDN_GRAD_BARRIER", "1") != "0":
-            # keep the AdamW update out of the dW dot fusions: the fused
-            # epilogue drags the encoder dW matmuls to ~70-80% of peak
-            # (b2t8 trace 2026-08-20); the barrier is an identity on the
-            # grads and A/B'd 675.9 -> 668.3 ms.  VDN_GRAD_BARRIER=0
-            # reverts.
+            # keep the AdamW update out of the dW dot fusions (an
+            # identity on the grads).  Tuned on another accelerator; its
+            # worth on the GPU is an open A/B (ROADMAP speed queue).
+            # VDN_GRAD_BARRIER=0 drops it.
             grads = jax.lax.optimization_barrier(grads)
         updates, opt_state = self.tx.update(grads, state.opt_state,
                                             state.params)

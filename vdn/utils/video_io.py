@@ -9,7 +9,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import cv2
 import numpy as np
 
 __all__ = ["read_video_frames", "save_video"]
@@ -19,6 +18,7 @@ def read_video_frames(video_path: str, process_length: int = -1,
                       target_fps: float = -1, max_res: int = -1
                       ) -> Tuple[np.ndarray, float]:
     """-> (frames [N, H, W, 3] uint8 RGB, fps)."""
+    import cv2
     cap = cv2.VideoCapture(video_path)
     original_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
     if target_fps <= 0:
@@ -68,6 +68,7 @@ def save_video(frames: np.ndarray, output_path: str, fps: float = 10.0,
     """frames: [N, H, W(, 3)] RGB; depths are colorized with inferno
     (reference dc_utils.py:72-86).  cv2 backend (this image ships no
     ffmpeg/imageio-ffmpeg)."""
+    import cv2
     h, w = frames[0].shape[:2]
     writer = cv2.VideoWriter(output_path,
                              cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
